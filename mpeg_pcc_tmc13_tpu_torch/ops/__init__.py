@@ -1,0 +1,1 @@
+"""Device passes on torch tensors and the hand-written CUDA kernels."""

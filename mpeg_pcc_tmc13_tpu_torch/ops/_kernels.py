@@ -1,0 +1,92 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+The sources are compiled with ``nvcc`` on first use into one shared
+library with a plain C interface, under ``build/torch_kernels/`` beside
+the package, named by a hash of the sources (an edited source builds
+anew), and loaded with ``ctypes``.  Each launcher takes device pointers,
+sizes and the CUDA stream as integers and returns ``cudaGetLastError()``.
+
+Nothing here runs at import.  A missing ``nvcc`` or a failed build
+raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG_DIR = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR.parent / "build" / "torch_kernels"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_LIB = None
+
+
+def _sources():
+    return sorted(SRC_DIR.glob("*.cu"))
+
+
+def _find_nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    return None
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libtmc13_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple:
+    """Compile the sources unless a library of the same hash exists.
+    Returns (path, seconds spent compiling; 0.0 when it was built)."""
+    so = library_path()
+    if so.exists():
+        return so, 0.0
+    nvcc = _find_nvcc()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin): cannot build the CUDA "
+                           "kernels")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}): "
+                           f"{' '.join(cmd)}\n{res.stderr}")
+    os.replace(tmp, so)   # atomic: a concurrent loader sees all or nothing
+    return so, secs
+
+
+def load():
+    """The loaded kernel library (built first if needed)."""
+    global _LIB
+    if _LIB is None:
+        so, _ = build()
+        lib = ctypes.CDLL(str(so))
+        vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.raht_fwd_blocks_launch.argtypes = [vp, vp, vp, vp, vp, i64, i32,
+                                               vp]
+        lib.raht_fwd_blocks_launch.restype = i32
+        lib.raht_inv_blocks_launch.argtypes = [vp, vp, vp, i64, i32, vp]
+        lib.raht_inv_blocks_launch.restype = i32
+        _LIB = lib
+    return _LIB

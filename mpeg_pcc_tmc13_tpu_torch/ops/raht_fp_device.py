@@ -1,0 +1,345 @@
+"""Device fixed-point RAHT on int64 tensors: counterpart of
+``mpeg_pcc_tmc13_tpu/ops/raht_fp_device.py:159-515``.
+
+Every data-dependent step is an integer add, multiply, arithmetic shift
+or floor division on int64 tensors, so the quantised coefficients are
+bit-identical to the numpy spec (``ops/raht_fp.py``) and to the JAX
+device codec, and the zrow stream is the same whichever codes it.
+
+The per-frame structure (block gathers, Q15 butterfly coefficients,
+18-neighbour tables, sqrt scales, pair masks, coded-order compaction
+indices) comes from the reference's host planner ``build_fp_plan``,
+which is numpy and imported as is; ``plans_to_torch`` carries it to the
+device.
+
+  encode: truth bottom-up (block butterflies), then top-down per
+  group: prediction from reconstructed parent means -> forward network
+  -> residual -> deadzone quantise.  All q rows reach the host in ONE
+  copy; the host's only job is the serial zrow range coding.
+  decode: the host entropy-decodes every group's q rows up front (the
+  row counts are geometry-static), uploads them in one copy, and the
+  device runs the prediction + inverse network top-down.
+
+Translation rules from the JAX form: ``jnp.floor_divide`` is
+``torch.div(..., rounding_mode="floor")``; ``>>`` on int64 is
+arithmetic in both; ``.at[].set``/``.at[].add`` are ``index_put_`` /
+``index_add_``; gather indices are clamped (the plans already keep them
+in range).
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from mpeg_pcc_tmc13_tpu.ops import raht_fp
+from mpeg_pcc_tmc13_tpu.ops.raht import _TOUCH_TABLE
+from mpeg_pcc_tmc13_tpu.ops.raht_fp_device import F, HALF, QA, build_fp_plan
+
+QAH = 1 << (QA - 1)
+
+_I64 = torch.int64
+
+# per octant: the 6 neighbour offsets j that touch it
+_TOUCH_JS = np.stack([np.nonzero(_TOUCH_TABLE[o])[0] for o in range(8)])
+_TOUCH_IDX = {}
+
+
+def _touch_index(device) -> torch.Tensor:
+    """(8, 6) int64 offsets touching each octant, kept on ``device``."""
+    key = str(device)
+    if key not in _TOUCH_IDX:
+        _TOUCH_IDX[key] = torch.as_tensor(_TOUCH_JS, dtype=_I64,
+                                          device=device)
+    return _TOUCH_IDX[key]
+
+
+def _floordiv(a, b):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+# ---------------------------------------------------------------------
+# host plan -> device
+# ---------------------------------------------------------------------
+
+_INDEX_KEYS = ("blk_gather", "pidx", "oct", "flat_z", "flat_y", "flat_x",
+               "nbr_idx")
+_INT_KEYS = ("sw_c", "sw_p", "az", "bz", "ay", "by", "ax", "bx", "sz", "sy",
+             "sx", "cnt_p")
+_BOOL_KEYS = ("vz", "vy", "vx", "nbr_ok", "en_base")
+
+
+def plans_to_torch(host_plans, device) -> List[dict]:
+    """The per-frame state carried across: each ``GroupPlan`` of
+    ``build_fp_plan`` as a dict of tensors on ``device`` (indices and
+    integers int64, masks bool)."""
+    out = []
+    for hp in host_plans:
+        d = {}
+        for k in _INDEX_KEYS + _INT_KEYS:
+            d[k] = torch.as_tensor(np.asarray(getattr(hp, k), np.int64),
+                                   device=device)
+        for k in _BOOL_KEYS:
+            d[k] = torch.as_tensor(np.asarray(getattr(hp, k), bool),
+                                   device=device)
+        out.append(d)
+    return out
+
+
+# ---------------------------------------------------------------------
+# device steps (int64 math identical to the numpy spec)
+# ---------------------------------------------------------------------
+
+def _fwd_block(vals8, p):
+    """Forward network on (mp, 8, C) block values.  Returns (dc (mp, C),
+    acz (mp,4,C), acy (mp,2,C), acx (mp,1,C)); invalid pair slots hold
+    zeros."""
+
+    def stage(v, a, b, valid, ssrc):
+        # v: (mp, 2k, C) -> (mp, k, C); a/b (mp, k)
+        v0 = v[:, 0::2]
+        v1 = v[:, 1::2]
+        a = a[..., None]
+        b = b[..., None]
+        dc = (a * v0 + b * v1 + QAH) >> QA
+        ac = (a * v1 - b * v0 + QAH) >> QA
+        single = torch.where(ssrc[..., None] == 1, v1, v0)
+        out = torch.where(valid[..., None], dc, single)
+        ac = torch.where(valid[..., None], ac, 0)
+        return out, ac
+
+    vz, acz = stage(vals8, p["az"], p["bz"], p["vz"], p["sz"])
+    vy, acy = stage(vz, p["ay"], p["by"], p["vy"], p["sy"])
+    vx, acx = stage(vy, p["ax"][:, None], p["bx"][:, None],
+                    p["vx"][:, None], p["sx"][:, None])
+    return vx[:, 0], acz, acy, acx
+
+
+def _inv_block(dc, acz, acy, acx, p):
+    """Inverse network: dc (mp, C) + per-stage AC grids -> (mp, 8, C)."""
+
+    def unstage(v, ac, a, b, valid, ssrc):
+        # v (mp, k, C) -> (mp, 2k, C)
+        a = a[..., None]
+        b = b[..., None]
+        v0 = (a * v - b * ac + QAH) >> QA
+        v1 = (b * v + a * ac + QAH) >> QA
+        s = ssrc[..., None] == 1
+        out0 = torch.where(valid[..., None], v0, torch.where(s, 0, v))
+        out1 = torch.where(valid[..., None], v1, torch.where(s, v, 0))
+        mp, k, c = v.shape
+        return torch.stack([out0, out1], dim=2).reshape(mp, 2 * k, c)
+
+    vy = unstage(dc[:, None], acx, p["ax"][:, None], p["bx"][:, None],
+                 p["vx"][:, None], p["sx"][:, None])
+    vz = unstage(vy, acy, p["ay"], p["by"], p["vy"], p["sy"])
+    return unstage(vz, acz, p["az"], p["bz"], p["vz"], p["sz"])
+
+
+def _predict(recon_p, grand_p, p, t0, t1, weights, have_grand):
+    """Fixed-point prediction per child (mc, C) from the parents'
+    reconstruction; also returns the next group's grandparent counts,
+    one per child."""
+    w_self, w_face, w_edge = weights
+    pf = _floordiv(recon_p << QA, p["sw_p"][:, None])    # Q13 means
+    pv = pf[:, 0]
+    nv = pf[p["nbr_idx"]]                                 # (mp, 18, C)
+    nl = nv[..., 0]
+    keep = p["nbr_ok"] & (10 * nl > 2 * pv[:, None]) \
+        & (10 * nl < 25 * pv[:, None])
+    en = p["en_base"]
+    if have_grand:
+        en = en & (grand_p >= t0)
+
+    # per-octant sums over the 6 offsets touching each octant: s_oct
+    # (mp, 8, C) of keep*w_j*nv, w_oct (mp, 8) of keep*w_j, with w_j
+    # w_face for the 6 face offsets and w_edge for the 12 edges.
+    # Integer sums, so any order is exact.
+    kw = keep.to(_I64)
+    kw = torch.cat([kw[:, :6] * w_face, kw[:, 6:] * w_edge], dim=1)
+    terms = nv * kw[..., None]
+    touch = _touch_index(pf.device)
+    s_oct = torch.stack([terms[:, js].sum(dim=1) for js in touch], 1)
+    w_oct = torch.stack([kw[:, js].sum(dim=1) for js in touch], 1)
+
+    pi = p["pidx"]
+    oc = p["oct"]
+    acc = pf[pi] * w_self + s_oct[pi, oc]
+    wsum = w_self + w_oct[pi, oc]
+    pm = _floordiv(acc, wsum[:, None])
+    pred = (pm * p["sw_c"][:, None] + QAH) >> QA
+    pred = torch.where(en[pi][:, None], pred, 0)
+    return pred, p["cnt_p"][pi]
+
+
+def _quant(res, steps):
+    a = res.abs()
+    st = steps[None, :]
+    q = _floordiv(24 * a + st, 3 * st)
+    return torch.where(res < 0, -q, q)
+
+
+def _dequant(q, steps):
+    a = q.abs()
+    d = (a * steps[None, :] + 4) >> 3
+    return torch.where(q < 0, -d, d)
+
+
+def _gather_blocks(vals, p):
+    g = p["blk_gather"]
+    return torch.where((g >= 0)[..., None], vals[g.clamp(min=0)], 0)
+
+
+def _compact(acz, acy, acx, p):
+    """Padded AC grids -> (npairs, C) rows in zrow coded order per
+    stage (the per-group emission order is z|y|x)."""
+    mp, _, c = acz.shape
+    z = acz.reshape(mp * 4, c)[p["flat_z"]]
+    y = acy.reshape(mp * 2, c)[p["flat_y"]]
+    x = acx.reshape(mp, c)[p["flat_x"]]
+    return z, y, x
+
+
+def _truth_level(vals, p):
+    dc, acz, acy, acx = _fwd_block(_gather_blocks(vals, p), p)
+    z, y, x = _compact(acz, acy, acx, p)
+    return dc, z, y, x
+
+
+def _inverse_group_pure(recon_p, rec_parts, p):
+    mp = p["az"].shape[0]
+    c = recon_p.shape[-1]
+    dev = recon_p.device
+    grids = []
+    for key, k, rec in (("flat_z", 4, rec_parts[0]),
+                        ("flat_y", 2, rec_parts[1]),
+                        ("flat_x", 1, rec_parts[2])):
+        grid = torch.zeros((mp * k, c), dtype=_I64, device=dev)
+        grid[p[key]] = rec
+        grids.append(grid.reshape(mp, k, c))
+    v8 = _inv_block(recon_p, *grids, p)
+    g = p["blk_gather"]
+    occ = g >= 0
+    mc = p["pidx"].shape[0]
+    flat = torch.zeros((mc, c), dtype=_I64, device=dev)
+    flat.index_add_(0, g.clamp(min=0).reshape(-1),
+                    torch.where(occ[..., None], v8, 0).reshape(-1, c))
+    return flat
+
+
+def _pred_ac(recon_p, grand_p, p, t0, t1, weights, have_grand):
+    """Prediction pushed through the forward network, compacted like
+    the truth ACs; plus the next group's grandparent counts."""
+    pred, cnt = _predict(recon_p, grand_p, p, t0, t1, weights,
+                         have_grand)
+    _, pz, py, px = _fwd_block(_gather_blocks(pred, p), p)
+    return _compact(pz, py, px, p), cnt
+
+
+def _enc_group(recon_p, grand_p, tz, ty, tx, steps, p,
+               t0, t1, weights, have_grand):
+    preds, cnt = _pred_ac(recon_p, grand_p, p, t0, t1, weights,
+                          have_grand)
+    qs = []
+    recs = []
+    for tr, pr in zip((tz, ty, tx), preds):
+        qq = _quant(tr - pr, steps)
+        qs.append(qq)
+        recs.append(pr + _dequant(qq, steps))
+    recon_c = _inverse_group_pure(recon_p, recs, p)
+    return qs[0], qs[1], qs[2], recon_c, cnt
+
+
+def _dec_group(recon_p, grand_p, qz, qy, qx, steps, p,
+               t0, t1, weights, have_grand):
+    preds, cnt = _pred_ac(recon_p, grand_p, p, t0, t1, weights,
+                          have_grand)
+    recs = [pr + _dequant(qq, steps)
+            for pr, qq in zip(preds, (qz, qy, qx))]
+    return _inverse_group_pure(recon_p, recs, p), cnt
+
+
+class DeviceFpRaht:
+    """Per-frame device codec state: the plan is uploaded once, then
+    encode()/decode() run the closed loop on ``device``."""
+
+    def __init__(self, leaf_codes: np.ndarray, depth: int, steps_q16,
+                 thresholds=(raht_fp._PRED_T0, raht_fp._PRED_T1),
+                 weights=(raht_fp._W_SELF, raht_fp._W_FACE,
+                          raht_fp._W_EDGE),
+                 device="cpu"):
+        self.device = torch.device(device)
+        self.depth = depth
+        self.t0, self.t1 = thresholds
+        self.weights = tuple(int(w) for w in weights)
+        self.steps = torch.as_tensor(np.asarray(steps_q16, dtype=np.int64),
+                                     device=self.device)
+        host_plans = build_fp_plan(leaf_codes, depth, thresholds)
+        self.plans = plans_to_torch(host_plans, self.device)
+        self.pair_counts = [(hp.flat_z.size, hp.flat_y.size,
+                             hp.flat_x.size) for hp in host_plans]
+        self.n_roots = host_plans[-1].mp if host_plans else \
+            leaf_codes.shape[0]
+
+    def _group_kw(self, gi):
+        return dict(t0=self.t0, t1=self.t1, weights=self.weights,
+                    have_grand=gi > 0)
+
+    def encode(self, values: np.ndarray, emit):
+        """values (N, C) ints.  emit(q_rows int32 (m, C)) is called in
+        coded order (root, then groups coarse->fine, z|y|x per group)
+        with host arrays.  Returns the device reconstruction (Q13)."""
+        vals = torch.as_tensor(np.asarray(values, dtype=np.int64),
+                               device=self.device) << F
+        acs_true = []          # per group (z, y, x) compacted
+        cur = vals
+        for g in range(self.depth):
+            cur, z, y, x = _truth_level(cur, self.plans[g])
+            acs_true.append((z, y, x))
+        root = cur                                   # (n_roots, C)
+
+        q_root = _quant(root, self.steps)
+        recon = _dequant(q_root, self.steps)
+        grand = torch.zeros((self.n_roots,), dtype=_I64, device=self.device)
+        pending = [q_root]
+        for gi in range(self.depth):
+            g = self.depth - 1 - gi                  # plan index
+            tz, ty, tx = acs_true[g]
+            qz, qy, qx, recon, grand = _enc_group(
+                recon, grand, tz, ty, tx, self.steps, self.plans[g],
+                **self._group_kw(gi))
+            pending.extend((qz, qy, qx))
+        # ONE device->host copy of every q row, split on the host
+        c = pending[0].shape[-1]
+        host = torch.cat([q.to(torch.int32).reshape(-1) for q in pending]
+                         ).cpu().numpy()
+        off = 0
+        for q in pending:
+            m = q.shape[0]
+            emit(host[off:off + m * c].reshape(m, c))
+            off += m * c
+        return recon
+
+    def decode(self, read_q, ncomp: int):
+        """read_q(m) -> (m, ncomp) int host rows, called in coded order
+        (the counts are geometry-static).  Returns the (N, ncomp) int64
+        values on the device."""
+        counts = [self.n_roots]
+        for gi in range(self.depth):
+            counts.extend(self.pair_counts[self.depth - 1 - gi])
+        # host entropy decode of every row up front, ONE upload
+        host = np.concatenate(
+            [np.asarray(read_q(m), dtype=np.int64).reshape(m, ncomp)
+             for m in counts], axis=0)
+        rows = torch.as_tensor(host, device=self.device).split(counts)
+        recon = _dequant(rows[0], self.steps)
+        grand = torch.zeros((self.n_roots,), dtype=_I64, device=self.device)
+        for gi in range(self.depth):
+            g = self.depth - 1 - gi
+            qz, qy, qx = rows[1 + 3 * gi:4 + 3 * gi]
+            recon, grand = _dec_group(
+                recon, grand, qz, qy, qx, self.steps, self.plans[g],
+                **self._group_kw(gi))
+        return (recon + HALF) >> F

@@ -1,0 +1,132 @@
+"""Port parity: the device geometry pipeline
+(mpeg_pcc_tmc13_tpu_torch.runtime.device_pipeline) against the JAX
+package's encode_pipelined/decode_pipelined, on CPU tensors.
+
+The stream is the native range coder's, so the payloads must be
+byte-identical; decoded leaf codes must equal the input exactly.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mpeg_pcc_tmc13_tpu.bitstream import entropy
+from mpeg_pcc_tmc13_tpu.models import geometry_octree as jgo
+from mpeg_pcc_tmc13_tpu.runtime import device_pipeline as jdp
+from mpeg_pcc_tmc13_tpu_torch.models import geometry_octree as tgo
+from mpeg_pcc_tmc13_tpu_torch.ops import octree as tops
+from mpeg_pcc_tmc13_tpu_torch.runtime import device_pipeline as tdp
+from mpeg_pcc_tmc13_tpu_torch.utils import morton as tmorton
+
+torch.set_num_threads(2)
+
+
+def _cloud(n, depth, seed=0):
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(0, 1 << depth, (n, 3)).astype(np.int64)
+    return tops.unique_sorted(np.sort(tmorton.encode(pos)))
+
+
+def _port_encode(uniq, depth, **kw):
+    enc = entropy.RangeEncoder()
+    st = tdp.PipelineStats()
+    tdp.encode_pipelined(uniq, depth, enc, tgo.OctreeContexts(), stats=st,
+                         **kw)
+    return enc.get_bytes(), st
+
+
+def _jax_encode(uniq, depth, **kw):
+    enc = entropy.RangeEncoder()
+    jdp.encode_pipelined(uniq, depth, enc, jgo.OctreeContexts(),
+                         packed_link=False, **kw)
+    return enc.get_bytes()
+
+
+def _port_decode(payload, depth, num_slices, per):
+    dec = entropy.RangeDecoder(payload)
+    outs = tdp.decode_pipelined(dec, tgo.OctreeContexts(), depth,
+                                num_slices, per)
+    return np.concatenate([nodes[:int(cnt)].numpy() for nodes, cnt in outs])
+
+
+@pytest.mark.parametrize("num_slices", [1, 3, 8])
+def test_payload_matches_jax_raw_link(num_slices):
+    depth = 7
+    uniq = _cloud(6000, depth, seed=1)
+    got, st = _port_encode(uniq, depth, num_slices=num_slices)
+    assert got == _jax_encode(uniq, depth, num_slices=num_slices)
+    assert st.num_slices == num_slices
+    assert sum(st.node_counts) > uniq.size
+    per = -(-uniq.size // num_slices)
+    assert np.array_equal(_port_decode(got, depth, num_slices, per), uniq)
+
+
+def test_undersized_cap_retries():
+    depth = 7
+    uniq = _cloud(4000, depth, seed=4)
+    got, _ = _port_encode(uniq, depth, num_slices=2, cap_factor=0.5)
+    assert got == _jax_encode(uniq, depth, num_slices=2, cap_factor=0.5)
+    per = -(-uniq.size // 2)
+    assert np.array_equal(_port_decode(got, depth, 2, per), uniq)
+
+
+def test_decode_matches_jax():
+    depth = 6
+    uniq = _cloud(3000, depth, seed=2)
+    payload, _ = _port_encode(uniq, depth, num_slices=4)
+    per = -(-uniq.size // 4)
+    dec = entropy.RangeDecoder(payload)
+    outs_j = jdp.decode_pipelined(dec, jgo.OctreeContexts(), depth, 4, per)
+    dec = entropy.RangeDecoder(payload)
+    outs_t = tdp.decode_pipelined(dec, tgo.OctreeContexts(), depth, 4, per)
+    for (nj, cj), (nt, ct) in zip(outs_j, outs_t):
+        assert int(np.asarray(cj)) == int(ct)
+        assert np.array_equal(np.asarray(nj), nt.numpy())
+
+
+def test_contexts_carry_across_from_reference():
+    """A context state trained by the JAX pipeline continues in the port
+    exactly as in the reference."""
+    depth = 6
+    first, second = _cloud(2000, depth, seed=7), _cloud(2000, depth, seed=8)
+    jctx = jgo.OctreeContexts()
+    jdp.encode_pipelined(first, depth, entropy.RangeEncoder(), jctx,
+                         num_slices=1, packed_link=False)
+    tctx = tgo.contexts_from_reference(jctx)
+    assert tctx.occupancy_sym is not jctx.occupancy_sym
+    enc_t = entropy.RangeEncoder()
+    tdp.encode_pipelined(second, depth, enc_t, tctx, num_slices=1)
+    enc_j = entropy.RangeEncoder()
+    jdp.encode_pipelined(second, depth, enc_j, jctx, num_slices=1,
+                         packed_link=False)
+    assert enc_t.get_bytes() == enc_j.get_bytes()
+    assert np.array_equal(tctx.occupancy_sym, jctx.occupancy_sym)
+
+
+def test_packed_link_not_ported():
+    uniq = _cloud(500, 5)
+    with pytest.raises(NotImplementedError):
+        tdp.encode_pipelined(uniq, 5, entropy.RangeEncoder(),
+                             tgo.OctreeContexts(), packed_link=True)
+
+
+def test_missing_native_coder_raises(monkeypatch):
+    """No hidden fallback to the pure-Python range coder."""
+    uniq = _cloud(500, 5)
+    monkeypatch.setattr(entropy, "_LIB", None)
+    with pytest.raises(RuntimeError, match="native range coder"):
+        tdp.encode_pipelined(uniq, 5, None, tgo.OctreeContexts())
+    with pytest.raises(RuntimeError, match="native range coder"):
+        tdp.decode_pipelined(None, tgo.OctreeContexts(), 5, 1, uniq.size)
+
+
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 100, 1000, 4097, 123457])
+def test_pow2_bucket_matches_reference(n):
+    assert tdp._pow2_bucket(n) == jdp._pow2_bucket(n)
+
+
+@pytest.mark.parametrize("num_slices", [1, 3, 7])
+def test_split_padded_matches_reference(num_slices):
+    uniq = _cloud(1000, 6, seed=3)
+    assert np.array_equal(tdp._split_padded(uniq, num_slices),
+                          jdp._split_padded(uniq, num_slices))
