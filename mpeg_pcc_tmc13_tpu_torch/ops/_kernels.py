@@ -1,10 +1,13 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled with ``nvcc`` on first use into one shared
-library with a plain C interface, under ``build/torch_kernels/`` beside
-the package, named by a hash of the sources (an edited source builds
-anew), and loaded with ``ctypes``.  Each launcher takes device pointers,
-sizes and the CUDA stream as integers and returns ``cudaGetLastError()``.
+Each ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a
+plain C interface, under ``build/torch_kernels/`` beside the package,
+named by a hash of the sources (an edited source builds anew), and
+loaded with ``ctypes``.  ptxas's register and spill report of the build
+is kept beside the library (``.log``).  Each launcher takes device
+pointers, sizes and the CUDA stream as integers and returns
+``cudaGetLastError()``.
 
 Nothing here runs at import.  A missing ``nvcc`` or a failed build
 raises; there is no fallback.
@@ -25,7 +28,7 @@ SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "torch_kernels"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _LIB = None
 
@@ -64,14 +67,34 @@ def build() -> tuple:
                            "/usr/local/cuda/bin): cannot build the CUDA "
                            "kernels")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{so.stem}.{os.getpid()}"
     t0 = time.perf_counter()
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log = []
+    failed = None
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        log.append(f"$ {' '.join(cmd)}\n{out}{err}")
+        if proc.returncode != 0 and failed is None:
+            failed = (proc.returncode, cmd, err)
+    if failed is not None:
+        rc, cmd, err = failed
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{err}")
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
     res = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): "
+        raise RuntimeError(f"nvcc link failed ({res.returncode}): "
                            f"{' '.join(cmd)}\n{res.stderr}")
+    secs = time.perf_counter() - t0
+    for _, obj, _ in jobs:
+        obj.unlink()
+    so.with_suffix(".log").write_text("\n".join(log))
     os.replace(tmp, so)   # atomic: a concurrent loader sees all or nothing
     return so, secs
 
@@ -88,5 +111,13 @@ def load():
         lib.raht_fwd_blocks_launch.restype = i32
         lib.raht_inv_blocks_launch.argtypes = [vp, vp, vp, i64, i32, vp]
         lib.raht_inv_blocks_launch.restype = i32
+        lib.rans_quantize_tables_launch.argtypes = [vp, vp, i64, vp]
+        lib.rans_quantize_tables_launch.restype = i32
+        lib.rans_encode_emit_launch.argtypes = [vp, vp, vp, vp, vp, vp, i64,
+                                                i32, vp]
+        lib.rans_encode_emit_launch.restype = i32
+        lib.rans_decode_tiles_launch.argtypes = [vp, vp, vp, i64, vp, vp, vp,
+                                                 vp, i64, i64, i32, i32, vp]
+        lib.rans_decode_tiles_launch.restype = i32
         _LIB = lib
     return _LIB

@@ -1,14 +1,19 @@
-"""Octree occupancy passes over Morton-sorted codes: counterpart of the
-device half of ``mpeg_pcc_tmc13_tpu/ops/octree.py``.
+"""Octree passes over Morton-sorted codes: counterpart of
+``mpeg_pcc_tmc13_tpu/ops/octree.py``.
 
 The octree is implicit in the sorted leaf codes: the nodes of level
 ``l`` of a depth-``d`` tree are the unique prefixes ``code >> 3*(d-l)``.
 
 * numpy host half: ``unique_sorted``, ``level_occupancy_np``,
-  ``popcount8_np`` and ``build_levels_np`` (PARENT contexts, the
-  device pipeline's) — the executable spec of the byte stream,
-* torch device half: ``encode_occ_u8`` / ``encode_occ_u8_hdr`` (encoder
-  analysis to level-major occupancy bytes) and ``decode_expand_stream``
+  ``neighbor_pattern_np``, ``occ_context_base_np``, ``expand_level_np``,
+  ``pred_occupancy_np``, ``popcount8_np`` and ``build_levels_np`` (NEIGH
+  or PARENT contexts) — the executable spec of the byte stream,
+* torch device half: ``encode_analysis`` / ``encode_analysis_packed``
+  (the full per-level analysis with context bases, for
+  ``models.geometry_octree`` ``engine="device"``), ``encode_occ_u8`` /
+  ``encode_occ_u8_hdr`` (occupancy bytes only, the device pipeline's
+  raw link), ``encode_occ_packed_hdr`` (the same bytes through the
+  static prefix code, the packed link) and ``decode_expand_stream``
   (decoder expansion back to leaf codes).
 
 The device half runs in native int64 throughout.  The reference splits
@@ -17,19 +22,35 @@ overflows at depth 21 (``ops/octree.py:471``, ``chi`` is a 33-bit value
 cast to int32); here the octant is read from the int64 code directly,
 so depth 21 matches ``build_levels_np``.
 
-Every pass is sync-free: shapes are static in the number of points and
-``cap``/``nmax``, as in the jitted reference, so nothing waits for the
-device until the caller fetches a result.
+The occupancy passes are sync-free: shapes are static in the number of
+points and ``cap``/``nmax``, as in the jitted reference, so nothing
+waits for the device until the caller fetches a result.  The packed
+analysis is the exception: its boolean-mask compaction sizes its output
+from the data.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-# PARENT context mode: base = child_idx << 8 | parent occupancy
-# (mpeg_pcc_tmc13_tpu/ops/octree.py:49-60)
+from ..utils import morton
+
+# 6 face neighbours, axis-major: -x,+x,-y,+y,-z,+z  (bit i of pattern).
+_FACE_OFFSETS = np.array(
+    [[-1, 0, 0], [1, 0, 0], [0, -1, 0], [0, 1, 0], [0, 0, -1], [0, 0, 1]],
+    dtype=np.int64,
+)
+
+# Context modes (reference ops/octree.py:49-60), one context memory:
+#   NEIGH  (mode 1): base = 6-bit face pattern | child_idx << 6   (512)
+#   PARENT (mode 0): base = child_idx << 8 | parent_occupancy    (2048)
+CTX_MODE_PARENT = 0
+CTX_MODE_NEIGH = 1
 NUM_OCC_BASES = 2048
+OCC_CTX_SIZE = NUM_OCC_BASES * 255
 
 I64_MAX = np.iinfo(np.int64).max
 
@@ -64,17 +85,66 @@ def level_occupancy_np(child_codes: np.ndarray):
     return parent_codes, occ.astype(np.uint8)
 
 
+def neighbor_pattern_np(node_codes: np.ndarray, level_dims: int) -> np.ndarray:
+    """6-bit face-neighbour-existence pattern per node of one level
+    (sorted unique codes, coordinates in [0, 2**level_dims)), by binary
+    search over the sorted codes."""
+    n = node_codes.shape[0]
+    if n == 0:
+        return np.zeros(0, dtype=np.uint8)
+    pos = morton.decode(node_codes)
+    lim = np.int64(1) << np.int64(level_dims)
+    pat = np.zeros(n, dtype=np.uint8)
+    for i, off in enumerate(_FACE_OFFSETS):
+        q = pos + off
+        valid = np.all((q >= 0) & (q < lim), axis=-1)
+        ncode = morton.encode(q)
+        idx = np.minimum(np.searchsorted(node_codes, ncode), n - 1)
+        hit = valid & (node_codes[idx] == ncode)
+        pat |= (hit.astype(np.uint8) << i)
+    return pat
+
+
+def occ_context_base_np(node_codes: np.ndarray, level_dims: int) -> np.ndarray:
+    """NEIGH context base per node: face pattern | child index << 6."""
+    pat = neighbor_pattern_np(node_codes, level_dims).astype(np.int32)
+    return pat | ((node_codes & 7).astype(np.int32) << 6)
+
+
+def expand_level_np(node_codes: np.ndarray, occ: np.ndarray) -> np.ndarray:
+    """Child codes (sorted unique) from node codes + occupancy bytes."""
+    bits = (occ[:, None] >> np.arange(8, dtype=np.uint8)) & 1
+    child = (node_codes[:, None] << 3) | np.arange(8, dtype=np.int64)
+    return child[bits.astype(bool)]
+
+
+def pred_occupancy_np(node_codes: np.ndarray, ref_child_codes: np.ndarray
+                      ) -> np.ndarray:
+    """Inter prediction: bit j of a node's byte is set iff the sorted
+    unique reference codes of level l+1 hold its child j."""
+    m = node_codes.shape[0]
+    if m == 0 or ref_child_codes.size == 0:
+        return np.zeros(m, dtype=np.int32)
+    queries = (node_codes[:, None] << 3) | np.arange(8, dtype=np.int64)
+    idx = np.searchsorted(ref_child_codes, queries)
+    idx = np.minimum(idx, ref_child_codes.size - 1)
+    hit = ref_child_codes[idx] == queries
+    return np.sum(
+        hit.astype(np.int32) << np.arange(8, dtype=np.int32)[None, :],
+        axis=1)
+
+
 def popcount8_np(x: np.ndarray) -> np.ndarray:
     return np.unpackbits(x.astype(np.uint8)[:, None],
                          axis=1).sum(axis=1).astype(np.int64)
 
 
-def build_levels_np(leaf_codes_unique: np.ndarray, depth: int):
-    """Encoder-side analysis with PARENT contexts: per level
-    l = 0..depth-1 a dict of the level's node codes, the occupancy bytes
-    that generate level l+1 and each node's context base
-    ``child_idx << 8 | parent_occ``.  Mirrors the reference
-    ``build_levels_np(..., mode=CTX_MODE_PARENT)``."""
+def build_levels_np(leaf_codes_unique: np.ndarray, depth: int,
+                    mode: int = CTX_MODE_NEIGH):
+    """Encoder-side analysis: per level l = 0..depth-1 a dict of the
+    level's node codes, the occupancy bytes that generate level l+1 and
+    each node's context base in ``mode`` (NEIGH by default, as in the
+    reference)."""
     codes_by_level = [None] * (depth + 1)
     codes_by_level[depth] = leaf_codes_unique
     occs = [None] * depth
@@ -84,14 +154,18 @@ def build_levels_np(leaf_codes_unique: np.ndarray, depth: int):
     out = []
     for l in range(depth):
         nodes = codes_by_level[l]
-        child = (nodes & 7).astype(np.int32)
-        if l == 0:
-            parent_occ = np.zeros(1, dtype=np.int32)
+        if mode == CTX_MODE_NEIGH:
+            base = occ_context_base_np(nodes, l)
         else:
-            prev = occs[l - 1]
-            parent_occ = np.repeat(prev.astype(np.int32), popcount8_np(prev))
-        out.append({"nodes": nodes, "occ": occs[l],
-                    "ctx_base": (child << 8) | parent_occ})
+            child = (nodes & 7).astype(np.int32)
+            if l == 0:
+                parent_occ = np.zeros(1, dtype=np.int32)
+            else:
+                prev = occs[l - 1]
+                parent_occ = np.repeat(prev.astype(np.int32),
+                                       popcount8_np(prev))
+            base = (child << 8) | parent_occ
+        out.append({"nodes": nodes, "occ": occs[l], "ctx_base": base})
     return out
 
 
@@ -175,6 +249,165 @@ def encode_occ_u8_hdr(leaf_codes_sorted: torch.Tensor, depth: int,
     return torch.cat([_u32_le_bytes(counts), occ])
 
 
+def encode_analysis(leaf_codes_sorted: torch.Tensor, depth: int,
+                    mode: int = CTX_MODE_NEIGH):
+    """Full-depth encoder analysis (reference ``encode_analysis_jax``,
+    ops/octree.py:217-295; the ``_jax`` suffix is dropped).
+
+    Input: (N,) sorted leaf Morton codes (duplicates allowed; they
+    collapse at the leaf level).  Output: dict of stacked per-level
+    tensors, each (depth, N), masked by ``node_mask``:
+
+      node_mask[l, i] — row i is the first point of a level-l node,
+      occ[l, i]       — that node's occupancy byte (int32),
+      ctx_base[l, i]  — its context base in ``mode`` (int32),
+      node_code[l, i] — the level-l code of point i (int64).
+
+    A Python loop over the levels of int64 torch ops.  A node's byte is
+    the sum of ``1 << octant`` over the first point of each of its
+    children, so add == or even with duplicate points.
+    """
+    c = leaf_codes_sorted
+    n = c.shape[0]
+    dev = c.device
+    occ_out = torch.zeros(depth, n, dtype=torch.int32, device=dev)
+    base_out = torch.zeros(depth, n, dtype=torch.int32, device=dev)
+    mask_out = torch.zeros(depth, n, dtype=torch.bool, device=dev)
+    code_out = torch.zeros(depth, n, dtype=torch.int64, device=dev)
+    if n == 0:
+        return {"occ": occ_out, "ctx_base": base_out,
+                "node_mask": mask_out, "node_code": code_out}
+    true1 = torch.ones(1, dtype=torch.bool, device=dev)
+    offsets = torch.as_tensor(_FACE_OFFSETS, device=dev)
+    bit6 = torch.bitwise_left_shift(
+        1, torch.arange(6, dtype=torch.int64, device=dev))
+    prev_occ_rows = torch.zeros(n, dtype=torch.int64, device=dev)
+    for l in range(depth):
+        shift_node = 3 * (depth - l)
+        cl = c >> shift_node                      # level-l code per point
+        first = torch.cat([true1, cl[1:] != cl[:-1]])
+        seg = torch.cumsum(first, dim=0) - 1      # node id per point
+        cc = c >> (shift_node - 3)                # level-(l+1) code
+        child_first = torch.cat([true1, cc[1:] != cc[:-1]])
+        contrib = torch.where(child_first,
+                              torch.bitwise_left_shift(1, cc & 7), 0)
+        occ = torch.zeros(n, dtype=torch.int64, device=dev)
+        occ.index_add_(0, seg, contrib)
+        occ_rows = occ[seg]                       # per-point node occ
+
+        if mode == CTX_MODE_NEIGH:
+            pos = morton.decode(cl)                           # (N,3)
+            q = pos[:, None, :] + offsets[None, :, :]         # (N,6,3)
+            valid = ((q >= 0) & (q < (1 << l))).all(dim=-1)   # (N,6)
+            ncode = morton.encode(q)                          # (N,6)
+            idx = torch.searchsorted(cl, ncode.reshape(-1))
+            idx = idx.clamp_(max=n - 1).reshape(n, 6)
+            hit = valid & (cl[idx] == ncode)
+            pat = (hit.to(torch.int64) * bit6).sum(dim=1)
+            base = pat | ((cl & 7) << 6)
+        else:
+            base = ((cl & 7) << 8) | prev_occ_rows
+
+        occ_out[l] = torch.where(first, occ_rows, 0)
+        base_out[l] = torch.where(first, base, 0)
+        mask_out[l] = first
+        code_out[l] = cl
+        prev_occ_rows = occ_rows
+    return {"occ": occ_out, "ctx_base": base_out, "node_mask": mask_out,
+            "node_code": code_out}
+
+
+def encode_analysis_packed(leaf_codes_sorted: torch.Tensor, depth: int,
+                           mode: int = CTX_MODE_NEIGH):
+    """``encode_analysis`` compacted on the device (reference
+    ``encode_analysis_packed``, ops/octree.py:368-394): each node's
+    (ctx_base, occ) packed as ``base << 8 | occ`` in one int32.
+
+    Returns (compact (total,) int32 in (level, node) order, counts
+    (depth,) int32 nodes per level).  The reference's stable argsort of
+    ~mask becomes a boolean-mask select in row-major (level, row) order,
+    the same order; unlike the reference's (depth*N,) buffer, only the
+    valid entries are returned, so the select waits for the device.
+    """
+    res = encode_analysis(leaf_codes_sorted, depth, mode)
+    packed = (res["ctx_base"] << 8) | res["occ"]
+    mask = res["node_mask"]
+    compact = packed.reshape(-1)[mask.reshape(-1)]
+    return compact, mask.sum(dim=1).to(torch.int32)
+
+
+@functools.cache
+def occ_code_tables():
+    """(lens (256,) int32, rev_codes (256,) int64) of the static link
+    code (reference ``_occ_code_tables``, ops/octree.py:484-506), read
+    from the shared native library (native/occ_code.inc).  Codes are
+    bit-reversed for LSB-first emission into little-endian uint32
+    words."""
+    import ctypes
+
+    from mpeg_pcc_tmc13_tpu.bitstream import entropy
+    if entropy._LIB is None:
+        raise RuntimeError("the native entropy library is not loaded: the "
+                           "link code table lives there")
+    lens = np.zeros(256, dtype=np.uint8)
+    codes = np.zeros(256, dtype=np.uint16)
+    entropy._LIB.occ_huff_table(
+        lens.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)))
+    rev = np.zeros(256, dtype=np.int64)
+    for s in range(256):
+        ln, code = int(lens[s]), int(codes[s])
+        for b in range(ln):
+            rev[s] |= ((code >> (ln - 1 - b)) & 1) << b
+    return lens.astype(np.int32), rev
+
+
+def encode_occ_packed_hdr(leaf_codes_sorted: torch.Tensor, depth: int,
+                          cap: int, cap_packed: int) -> torch.Tensor:
+    """``encode_occ_u8`` + on-device link compression (reference
+    ``encode_occ_packed_hdr``, ops/octree.py:509-561).
+
+    The level-major occupancy bytes go through the static prefix code
+    packed LSB-first into little-endian uint32 words: per-symbol bit
+    offsets by cumsum, each code added into its word as disjoint (lo, hi)
+    bit halves, so ``index_add_`` on int64 is an OR.  Word slots at or
+    past ``cap_packed // 4`` are dropped, as the reference's
+    ``segment_sum`` drops them.
+
+    Returns a (4*depth + 4 + 4*(cap_packed//4),) uint8 tensor:
+    [depth uint32 node counts | uint32 total_bits | packed words].  If
+    total_bits > 8*cap_packed - 24 the packed region is invalid (the
+    native unpacker reads 2 bytes ahead) and the caller takes the raw
+    link for this slice.  Built on ``encode_occ_u8``, so at depth 21 it
+    follows ``build_levels_np``, not the JAX kernel.
+    """
+    dev = leaf_codes_sorted.device
+    lens_np, rev_np = occ_code_tables()
+    occ, counts = encode_occ_u8(leaf_codes_sorted, depth, cap)
+    total = counts.to(torch.int64).sum()
+    mask = torch.arange(cap, dtype=torch.int64, device=dev) < total
+    sym = occ.to(torch.int64)
+    lens = torch.where(mask, torch.as_tensor(lens_np, device=dev)
+                       .to(torch.int64)[sym], 0)
+    offs = torch.cumsum(lens, dim=0) - lens
+    rev = torch.where(mask, torch.as_tensor(rev_np, device=dev)[sym], 0)
+    word = offs >> 5
+    bit = offs & 31
+    lo = (rev << bit) & 0xFFFFFFFF
+    hi = rev >> (32 - bit)
+    nwords = cap_packed // 4
+    acc = torch.zeros(nwords + 1, dtype=torch.int64, device=dev)
+    keep_lo = word <= nwords
+    keep_hi = word + 1 <= nwords
+    acc.index_add_(0, torch.where(keep_lo, word, 0),
+                   torch.where(keep_lo, lo, 0))
+    acc.index_add_(0, torch.where(keep_hi, word + 1, 0),
+                   torch.where(keep_hi, hi, 0))
+    total_bits = lens.sum().reshape(1)
+    return torch.cat([_u32_le_bytes(counts), _u32_le_bytes(total_bits),
+                      _u32_le_bytes(acc[:nwords])])
+
+
 def _nth_set_bit_table(device) -> torch.Tensor:
     """(256, 8) int64: entry [b, r] = index of the r-th set bit of byte b
     (0 past the popcount).  Built on the device from arithmetic."""
@@ -207,7 +440,9 @@ def _expand_level(nodes: torch.Tensor, occ: torch.Tensor, nmax: int,
     its child bit from the nth-set-bit table at rank k - start[j_k].
 
     occ must be zero past the node count.  Returns (child codes (nmax,)
-    int64 padded with INT64_MAX, child count as a 0-d int64 tensor).
+    int64 padded with INT64_MAX, child count as a 0-d int64 tensor,
+    source row of each child slot (nmax,) int64 — the rANS decoder reads
+    the parent's byte through it).
     """
     row = torch.arange(nmax, dtype=torch.int64, device=nodes.device)
     occ64 = occ.to(torch.int64)
@@ -221,7 +456,7 @@ def _expand_level(nodes: torch.Tensor, occ: torch.Tensor, nmax: int,
     # padding rows hold INT64_MAX, whose shift wraps; they are masked
     out = torch.bitwise_left_shift(nodes[src], 3) | bit
     out = torch.where(row < new_cnt, out, I64_MAX)
-    return out, new_cnt
+    return out, new_cnt, src
 
 
 def decode_expand_stream(occ_u8: torch.Tensor, counts: torch.Tensor,
@@ -248,5 +483,5 @@ def decode_expand_stream(occ_u8: torch.Tensor, counts: torch.Tensor,
     for l in range(depth):
         idx = (offs[l] + row).clamp_(max=cap - 1)
         occ = torch.where(row < counts[l], occ_u8[idx], 0)
-        nodes, cnt = _expand_level(nodes, occ, nmax, nth_bit, popcnt)
+        nodes, cnt, _ = _expand_level(nodes, occ, nmax, nth_bit, popcnt)
     return nodes, cnt

@@ -4,26 +4,31 @@
 Per slice:
 
   1. device: full-depth octree analysis -> level-major occupancy bytes
-     (``ops.octree.encode_occ_u8_hdr``; one byte per tree node),
+     (``ops.octree.encode_occ_u8_hdr``; one byte per tree node), or the
+     same bytes through the static prefix code
+     (``ops.octree.encode_occ_packed_hdr``, ``packed_link=True``),
   2. link: two-step fetch — the counts header, then only the
      size-bucketed used bytes.  With several slices a prefetch thread
      pulls slice s+1 while the host codes slice s,
-  3. host: one native call per slice entropy-codes the stream with
-     PARENT contexts derived from the stream itself (the shared
+  3. host: the packed link is unpacked by the shared native
+     ``occ_unpack``; one native call per slice entropy-codes the stream
+     with PARENT contexts derived from the stream itself (the shared
      ``mpeg_pcc_tmc13_tpu.bitstream.entropy`` ``occ_stream``).
+
+The stream is the same through either link.  The raw link is the
+default here (the reference defaults to the packed one, which its own
+docstring and benchmark call the wrong trade).  A slice that overflows
+its packed budget is redone through the raw link, as in the reference.
 
 Decode mirrors it: the host entropy stage decodes each slice's
 self-delimiting byte stream, the bytes go to the device, and
-``ops.octree.decode_expand_stream`` rebuilds the leaf codes there.
-
-The raw occupancy-byte link is the default and the only link ported:
-the reference's on-device prefix-code packer (``packed_link=True``,
-``encode_occ_packed_hdr``) raises ``NotImplementedError`` here.  The
+``ops.octree.decode_expand_stream`` rebuilds the leaf codes there.  The
 native range coder is required; there is no pure-Python fallback.
 """
 
 from __future__ import annotations
 
+import ctypes
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -83,6 +88,7 @@ def _pow2_bucket(n: int, floor: int = 64) -> int:
 def encode_pipelined(codes_sorted: np.ndarray, depth: int, enc, ctx,
                      num_slices: int = 8, cap_factor: float = 2.3,
                      packed_link: bool = False,
+                     packed_cap_factor: float = 1.6,
                      device_codes: Optional[list] = None,
                      stats: Optional[PipelineStats] = None,
                      device="cpu") -> None:
@@ -90,14 +96,12 @@ def encode_pipelined(codes_sorted: np.ndarray, depth: int, enc, ctx,
 
     enc/ctx: a native ``entropy.RangeEncoder()`` and an
     ``OctreeContexts``; contexts continue across slices, giving ONE
-    stream that ``decode_pipelined`` reads back.  device_codes: optional
-    pre-staged per-slice int64 tensors (then ``device`` is theirs); when
-    None, the chunks are uploaded to ``device`` here.
+    stream that ``decode_pipelined`` reads back.  packed_link: compress
+    the device->host bytes with the static occupancy prefix code; the
+    stream is identical either way.  device_codes: optional pre-staged
+    per-slice int64 tensors (then ``device`` is theirs); when None, the
+    chunks are uploaded to ``device`` here.
     """
-    if packed_link:
-        raise NotImplementedError(
-            "the packed device->host link (encode_occ_packed_hdr) is not "
-            "ported; use the raw link (packed_link=False)")
     _require_native()
     if device_codes is None:
         chunks = _split_padded(codes_sorted, num_slices)
@@ -105,18 +109,37 @@ def encode_pipelined(codes_sorted: np.ndarray, depth: int, enc, ctx,
                         for s in range(num_slices)]
     per = device_codes[0].shape[0]
     cap = max(64, int(per * cap_factor)) & ~63
+    cap_packed = max(64, int(per * packed_cap_factor)) & ~63
     hdr = 4 * depth
 
     t0 = time.perf_counter()
     # stage 1: queue every slice's analysis (asynchronous on a card)
-    pending = [ops.encode_occ_u8_hdr(dc, depth, cap) for dc in device_codes]
+    if packed_link:
+        pending = [ops.encode_occ_packed_hdr(dc, depth, cap, cap_packed)
+                   for dc in device_codes]
+    else:
+        pending = [ops.encode_occ_u8_hdr(dc, depth, cap)
+                   for dc in device_codes]
     fetched = [0]
 
-    def _fetch(buf):
-        """Two-step fetch of one slice: the counts header, then only the
-        bucketed used prefix.  Returns (occ, total), occ None when the
-        slice overflowed its budget.  ``.cpu()`` waits for the producing
-        kernels, so the host never reads a buffer early."""
+    def _fetch_packed(buf):
+        h = buf[:hdr + 4].cpu().numpy()
+        total = int(h[:hdr].view(np.uint32).sum())
+        total_bits = int(h[hdr:].view(np.uint32)[0])
+        fetched[0] += h.nbytes
+        if total > cap or total_bits > 8 * cap_packed - 24:
+            return None, total
+        bucket = min(cap_packed, _pow2_bucket(total_bits // 8 + 4))
+        packed = np.ascontiguousarray(
+            buf[hdr + 4:hdr + 4 + bucket].cpu().numpy())
+        fetched[0] += packed.nbytes
+        occ = np.empty(total, dtype=np.uint8)
+        entropy._LIB.occ_unpack(
+            packed.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            occ.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), total)
+        return occ, total
+
+    def _fetch_raw(buf):
         h = buf[:hdr].cpu().numpy()
         total = int(h.view(np.uint32).sum())
         fetched[0] += h.nbytes
@@ -126,6 +149,12 @@ def encode_pipelined(codes_sorted: np.ndarray, depth: int, enc, ctx,
         body = buf[hdr:hdr + bucket].cpu().numpy()
         fetched[0] += body.nbytes
         return body[:total], total
+
+    # Two-step fetch of one slice: the header, then only the bucketed
+    # used prefix.  Returns (occ, total), occ None when the slice
+    # overflowed its budget.  ``.cpu()`` waits for the producing
+    # kernels, so the host never reads a buffer early.
+    _fetch = _fetch_packed if packed_link else _fetch_raw
 
     # stages 2+3 overlapped: the prefetch thread pulls slice s+1 through
     # the link while the main thread entropy-codes slice s
@@ -142,7 +171,8 @@ def encode_pipelined(codes_sorted: np.ndarray, depth: int, enc, ctx,
             else:
                 occ, total = _fetch(buf)
             if occ is None:
-                # undersized budget: redo this slice with room to spare
+                # undersized budget: redo this slice through the raw
+                # link with room to spare
                 big = max(64, int(max(total, cap) * 1.25)) & ~63
                 h = ops.encode_occ_u8_hdr(device_codes[si], depth,
                                           big).cpu().numpy()

@@ -29,7 +29,7 @@ def _codes(n, depth, seed):
 
 
 def _host_bytes(uniq, depth):
-    levels = tops.build_levels_np(uniq, depth)
+    levels = tops.build_levels_np(uniq, depth, tops.CTX_MODE_PARENT)
     return (np.concatenate([lv["occ"] for lv in levels]),
             [lv["occ"].size for lv in levels])
 

@@ -4,6 +4,7 @@ port's independence from jax and ``chip_smoke.py``'s refusal to run
 without a GPU.
 """
 
+import ast
 import json
 import os
 import shutil
@@ -122,6 +123,30 @@ _JAX_BLOCKED = textwrap.dedent("""
     assert np.array_equal(r.decoded_codes, uniq)
     assert r.decoded_colors.shape == colors.shape
     assert np.abs(r.raht_recon - colors).max() < 0.01
+
+    # every module of the port imports, and the on-device geometry
+    # engines run: a rANS round trip and an engine="device" encode
+    import importlib
+    import pkgutil
+    import mpeg_pcc_tmc13_tpu_torch as pkg
+    for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        importlib.import_module(m.name)
+    from mpeg_pcc_tmc13_tpu_torch import host
+    from mpeg_pcc_tmc13_tpu_torch.models import geometry_octree as go
+    from mpeg_pcc_tmc13_tpu_torch.models import geometry_rans as gr
+    from mpeg_pcc_tmc13_tpu_torch.ops import octree
+    from mpeg_pcc_tmc13_tpu_torch.utils import morton
+    pos = morton.decode(uniq)
+    out = gr.decode(gr.encode(pos, 6, device="cpu"), uniq.size, 6,
+                    device="cpu")
+    assert np.array_equal(out, pos)
+    streams = []
+    for engine in ("device", "native"):
+        enc = host.RangeEncoder()
+        go.encode(pos, 6, enc, go.OctreeContexts(), engine=engine,
+                  ctx_mode=octree.CTX_MODE_NEIGH, device="cpu")
+        streams.append(enc.get_bytes())
+    assert streams[0] == streams[1]
     assert not any(m == "jax" or m.startswith(("jax.", "jaxlib"))
                    for m in sys.modules)
     print("NO_JAX_OK", uniq.size)
@@ -135,6 +160,23 @@ def test_port_runs_with_jax_blocked():
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "NO_JAX_OK" in res.stdout
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py imports neither jax nor the JAX package: what it
+    needs of the shared host layer comes through the port's ``host``."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            mods.add(node.module or "")
+    bad = {m for m in mods
+           if m.split(".")[0] in ("jax", "jaxlib", "mpeg_pcc_tmc13_tpu")}
+    assert not bad, bad
+    assert "mpeg_pcc_tmc13_tpu_torch" in mods
 
 
 def _last_json(stdout):
