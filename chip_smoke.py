@@ -26,6 +26,13 @@ Drives the port's main path (``mpeg_pcc_tmc13_tpu_torch``) once on
       size in NEIGH and PARENT mode, byte-identical to the shared C++
       engine, and decoded back,
   (j) the packed device->host link, the same stream as the raw link,
+  (k) the port's tmc3-compatible CLI (``runtime.cli``) on the bench
+      cloud with RAHT colour (qp 22): an encode and a decode with each of
+      ``--geomEngine=native|device|rans`` on the default CUDA device, the
+      rANS stream decoded again in a separate CLI process; the device
+      stream equals the native one, every decode gives the unique input
+      positions and the same colours, the device engine analysed on the
+      card and every rANS kernel launched,
   (f) timing: the stage times of a second (warm) round trip, and each
       kernel against its plain version at the shapes of (d) and (g),
       plus the rANS encode/decode wall times.
@@ -38,10 +45,15 @@ It imports no jax.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -57,6 +69,9 @@ PARSEVAL_MAX = 1e-3
 TIMING_REPS = 10
 
 SLOW_REPS = 2                   # plain rANS passes take ~1 s each
+REPO = Path(__file__).resolve().parent
+CLI_DIR = REPO / "build" / "chip_smoke_cli"      # git-ignored
+CLI_FLAGS = ("--attribute=color", "--transformType=0", f"--qp={BENCH_QP}")
 
 KERNELS = {
     "fwd_blocks": ("raht_fwd_blocks", "raht_blocks.cu",
@@ -491,6 +506,177 @@ def phase_j(device, uniq, depth, raw_stream):
           raw_wall_s=f"{link[False].wall_s:.4f}")
 
 
+def _cli(args):
+    """Run the port's CLI in this process: (wall s, its stdout)."""
+    from mpeg_pcc_tmc13_tpu_torch.runtime import cli
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(list(args))
+    secs = time.perf_counter() - t0
+    _check(rc == 0, f"cli {' '.join(args)} exited {rc}:\n{out.getvalue()}")
+    return secs, out.getvalue()
+
+
+def _cli_number(out, pattern):
+    m = re.search(pattern, out)
+    _check(m is not None, f"no {pattern!r} in the CLI's output")
+    return m.group(1)
+
+
+def _attribute_bricks(path):
+    from mpeg_pcc_tmc13_tpu_torch import host
+    with open(path, "rb") as f:
+        return [b.data for b in host.tlv.iter_tlv(f)
+                if b.type == host.tlv.PayloadType.ATTRIBUTE_BRICK]
+
+
+def _decoded(path, uniq):
+    """(positions, colours) of a decoded PLY, Morton-sorted; checks the
+    positions are exactly the unique input positions."""
+    from mpeg_pcc_tmc13_tpu_torch import host
+    from mpeg_pcc_tmc13_tpu_torch.utils import morton
+    cloud = host.ply.read(str(path))
+    codes = morton.encode(np.round(cloud.positions).astype(np.int64))
+    order = np.argsort(codes, kind="stable")
+    _check(np.array_equal(codes[order], uniq),
+           f"{path.name}: decoded positions are not the unique input")
+    return cloud.colors[order]
+
+
+@contextlib.contextmanager
+def _timed(module, name, secs):
+    """Add the wall time of every call of ``module.name`` to
+    ``secs[name]`` while the block runs."""
+    fn = getattr(module, name)
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def phase_k(device, uniq, depth, colors, smi):
+    """The port's CLI at the bench size, each geometry engine on the
+    default device of the run (on the card no --device is given)."""
+    from mpeg_pcc_tmc13_tpu_torch import host
+    from mpeg_pcc_tmc13_tpu_torch.models import attributes
+    from mpeg_pcc_tmc13_tpu_torch.ops import octree
+    from mpeg_pcc_tmc13_tpu_torch.ops import rans_lanes as L
+    from mpeg_pcc_tmc13_tpu_torch.utils import morton
+
+    extra = [] if device.type == "cuda" else [f"--device={device}"]
+    CLI_DIR.mkdir(parents=True, exist_ok=True)
+    src = CLI_DIR / "bench.ply"
+    host.ply.write(host.ply.PlyCloud(
+        positions=morton.decode(uniq).astype(np.float64), colors=colors),
+        str(src))
+    # spy: the torch device of every engine="device" analysis
+    analysed = []
+    packed = octree.encode_analysis_packed
+
+    def spy(codes, *a, **k):
+        analysed.append(codes.device.type)
+        return packed(codes, *a, **k)
+
+    octree.encode_analysis_packed = spy
+    runs = {}
+    try:
+        for engine in ("native", "device", "rans"):
+            bin_path = CLI_DIR / f"{engine}.bin"
+            rec = CLI_DIR / f"{engine}.ply"
+            analysed.clear()
+            attr_s = {}
+            _sync(device)
+            L.reset_launch_counts()
+            with _timed(attributes, "encode", attr_s):
+                enc_s, enc_out = _cli(
+                    ["--mode=0", f"--uncompressedDataPath={src}",
+                     f"--compressedStreamPath={bin_path}",
+                     f"--geomEngine={engine}", *CLI_FLAGS, *extra])
+            enc_launches = dict(L.LAUNCHES)
+            L.reset_launch_counts()
+            with _timed(attributes, "decode", attr_s):
+                dec_s, dec_out = _cli(
+                    ["--mode=1", f"--compressedStreamPath={bin_path}",
+                     f"--reconstructedDataPath={rec}", *extra])
+            dec_launches = dict(L.LAUNCHES)
+            runs[engine] = SimpleNamespace(
+                stream=bin_path.read_bytes(), colors=_decoded(rec, uniq),
+                bricks=_attribute_bricks(bin_path), analysed=list(analysed),
+                enc_launches=enc_launches, dec_launches=dec_launches)
+            _line("k", engine=engine, points=uniq.size,
+                  encode_s=f"{enc_s:.3f}",
+                  encode_cli_wall_s=_cli_number(
+                      enc_out, r"Processing time \(wall\): ([\d.]+)"),
+                  attr_encode_s=f"{attr_s['encode']:.3f}",
+                  decode_s=f"{dec_s:.3f}",
+                  decode_cli_wall_s=_cli_number(
+                      dec_out, r"Processing time \(wall\): ([\d.]+)"),
+                  attr_decode_s=f"{attr_s['decode']:.3f}",
+                  geom_bytes=_cli_number(
+                      enc_out, r"positions bitstream size (\d+) B"),
+                  color_bytes=_cli_number(
+                      enc_out, r"colors bitstream size (\d+) B"),
+                  stream_bytes=len(runs[engine].stream),
+                  analysis_devices=",".join(analysed) or "none",
+                  rans_launches_encode=json.dumps(enc_launches,
+                                                  separators=(",", ":")),
+                  rans_launches_decode=json.dumps(dec_launches,
+                                                  separators=(",", ":")))
+    finally:
+        octree.encode_analysis_packed = packed
+
+    nat, dev, rans = runs["native"], runs["device"], runs["rans"]
+    _check(dev.stream == nat.stream,
+           "the --geomEngine=device stream differs from the native one")
+    _check(dev.analysed == [device.type] and not nat.analysed,
+           f"the device engine analysed on {dev.analysed}, not "
+           f"{device.type}")
+    for other in (dev, rans):
+        _check(np.array_equal(other.colors, nat.colors),
+               "decoded colours differ between the geometry engines")
+    total = {k: rans.enc_launches[k] + rans.dec_launches[k]
+             for k in rans.enc_launches}
+    _check(all(v > 0 for v in total.values())
+           and rans.dec_launches["decode_tiles"] > 0,
+           f"a rANS kernel was not launched under the CLI: {total}")
+
+    # the rANS stream decoded by the command a user runs
+    sub = CLI_DIR / "rans_subprocess.ply"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "mpeg_pcc_tmc13_tpu_torch.runtime.cli",
+         "--mode=1", f"--compressedStreamPath={CLI_DIR / 'rans.bin'}",
+         f"--reconstructedDataPath={sub}", *extra],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    sub_s = time.perf_counter() - t0
+    _check(res.returncode == 0,
+           f"the CLI process failed ({res.returncode}):\n{res.stderr}")
+    _check(sub.read_bytes() == (CLI_DIR / "rans.ply").read_bytes(),
+           "the CLI process decoded another PLY than the in-process one")
+    _line("k", device_vs_native_stream="identical",
+          positions="unique_input_x3", colors="equal_x3",
+          attribute_bricks=("identical_x3" if nat.bricks == dev.bricks
+                            == rans.bricks else "differ"),
+          rans_launches=json.dumps(total, separators=(",", ":")),
+          subprocess_decode_s=f"{sub_s:.3f}",
+          subprocess_cli_wall_s=_cli_number(
+              res.stdout, r"Processing time \(wall\): ([\d.]+)"),
+          subprocess_ply="identical", card=repr(smi))
+    return total
+
+
 def _level_inputs(uniq, colors, depth, device):
     """The (B, 8, C) / (B, 8) inputs of every level of the float lane of
     (d), propagated with the plain version (no kernel launches)."""
@@ -636,6 +822,7 @@ def main() -> int:
     phase_h(device)                                            # (h)
     phase_i(device, uniq, BENCH_DEPTH)                         # (i)
     phase_j(device, uniq, BENCH_DEPTH, r.geom_payload)         # (j)
+    phase_k(device, uniq, BENCH_DEPTH, colors, smi)            # (k)
     times = phase_f(device, uniq, BENCH_DEPTH, colors, rans)   # (f)
 
     kernels = []

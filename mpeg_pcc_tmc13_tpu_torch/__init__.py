@@ -21,14 +21,24 @@ What is ported:
   analysis of ``ops.octree`` on a torch device),
 * the on-device rANS geometry engine (``models.geometry_rans``,
   ``ops.octree_rans``) over three hand-written CUDA lane kernels
-  (``csrc/rans_lanes.cu``, ``ops.rans_lanes``).
+  (``csrc/rans_lanes.cu``, ``ops.rans_lanes``),
+* the frame codec and its tmc3-compatible CLI (``runtime.encoder``,
+  ``runtime.decoder``, ``runtime.cli``, script ``tmc3-cuda``) with the
+  host modules they run: the attribute codecs (``models.attr_raht``,
+  ``attr_predlift``, ``attributes``), predictive and OBUF geometry,
+  quantisation, partitioning, recolouring, motion and levels of detail.
+  Trisoup geometry and the tmc3 syntax family are not ported yet.
 
 The jax-free host layer of the reference package (the native range
 coder, the numpy fixed-point RAHT spec and its planner, the angular
-laser helpers) is shared, not copied; ``host`` re-exports what callers
+laser helpers, the bitstream syntax, PLY I/O, the conformance
+parameter sets) is shared, not copied; ``host`` re-exports what callers
 of the port need from it.  Code that reaches jax only through its
-Morton codes is copied here with the port's ``utils.morton``
-(``ops.angular.node_angular_ctx``).  This package never imports jax.
+Morton codes is copied here with the port's ``utils.morton``: whole
+modules (the frame codec above) or single functions
+(``ops.angular.node_angular_ctx``, ``models.attributes.encode``/
+``decode``, ``models.geometry_obuf.decode``).  This package never
+imports jax.
 
 Importing it needs no GPU.  Public entry points take a ``device``; the
 model engines (``models.geometry_rans``, ``models.geometry_octree``'s

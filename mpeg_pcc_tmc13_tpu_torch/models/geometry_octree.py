@@ -32,14 +32,9 @@ import torch
 from mpeg_pcc_tmc13_tpu.bitstream import entropy
 
 from ..ops import octree as ops
+from ..ops.motion import LPU_CTX_SIZE
 from ..utils import morton
 from ..utils.device import resolve as resolve_device
-
-# Local-motion (LPU) context count of the reference
-# (mpeg_pcc_tmc13_tpu/ops/motion.py:113-115: 2 flag contexts + 3 x 26
-# resbl trees).  Defined here because that module reaches jax;
-# tests/test_torch_geometry_octree.py pins it to the reference value.
-LPU_CTX_SIZE = 2 + 3 * 26
 
 # dup-count ueg: 2 prefix contexts + escape; see entropy ueg layout
 _DUP_PREFIX_MAX = 2

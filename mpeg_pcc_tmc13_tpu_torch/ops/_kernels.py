@@ -10,7 +10,9 @@ pointers, sizes and the CUDA stream as integers and returns
 ``cudaGetLastError()``.
 
 Nothing here runs at import.  A missing ``nvcc`` or a failed build
-raises; there is no fallback.
+raises; there is no fallback.  ``build()`` and ``load()`` hold a
+module lock, so threads of one process that reach the kernels together
+(the CLI's slice-parallel encode) build and load the library once.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -31,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _LIB = None
+_LOCK = threading.RLock()
 
 
 def _sources():
@@ -58,6 +62,11 @@ def library_path() -> Path:
 def build() -> tuple:
     """Compile the sources unless a library of the same hash exists.
     Returns (path, seconds spent compiling; 0.0 when it was built)."""
+    with _LOCK:
+        return _build()
+
+
+def _build() -> tuple:
     so = library_path()
     if so.exists():
         return so, 0.0
@@ -67,7 +76,8 @@ def build() -> tuple:
                            "/usr/local/cuda/bin): cannot build the CUDA "
                            "kernels")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{so.stem}.{os.getpid()}"
+    # process and thread: no two builds share a temporary name
+    tag = f"{so.stem}.{os.getpid()}.{threading.get_ident()}"
     t0 = time.perf_counter()
     jobs = []
     for src in _sources():
@@ -102,22 +112,27 @@ def build() -> tuple:
 def load():
     """The loaded kernel library (built first if needed)."""
     global _LIB
-    if _LIB is None:
-        so, _ = build()
-        lib = ctypes.CDLL(str(so))
-        vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.raht_fwd_blocks_launch.argtypes = [vp, vp, vp, vp, vp, i64, i32,
-                                               vp]
-        lib.raht_fwd_blocks_launch.restype = i32
-        lib.raht_inv_blocks_launch.argtypes = [vp, vp, vp, i64, i32, vp]
-        lib.raht_inv_blocks_launch.restype = i32
-        lib.rans_quantize_tables_launch.argtypes = [vp, vp, i64, vp]
-        lib.rans_quantize_tables_launch.restype = i32
-        lib.rans_encode_emit_launch.argtypes = [vp, vp, vp, vp, vp, vp, i64,
-                                                i32, vp]
-        lib.rans_encode_emit_launch.restype = i32
-        lib.rans_decode_tiles_launch.argtypes = [vp, vp, vp, i64, vp, vp, vp,
-                                                 vp, i64, i64, i32, i32, vp]
-        lib.rans_decode_tiles_launch.restype = i32
-        _LIB = lib
+    with _LOCK:
+        if _LIB is None:
+            _LIB = _open(build()[0])
     return _LIB
+
+
+def _open(so: Path):
+    """ctypes handle on the library with the launchers' signatures."""
+    lib = ctypes.CDLL(str(so))
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.raht_fwd_blocks_launch.argtypes = [vp, vp, vp, vp, vp, i64, i32,
+                                           vp]
+    lib.raht_fwd_blocks_launch.restype = i32
+    lib.raht_inv_blocks_launch.argtypes = [vp, vp, vp, i64, i32, vp]
+    lib.raht_inv_blocks_launch.restype = i32
+    lib.rans_quantize_tables_launch.argtypes = [vp, vp, i64, vp]
+    lib.rans_quantize_tables_launch.restype = i32
+    lib.rans_encode_emit_launch.argtypes = [vp, vp, vp, vp, vp, vp, i64,
+                                            i32, vp]
+    lib.rans_encode_emit_launch.restype = i32
+    lib.rans_decode_tiles_launch.argtypes = [vp, vp, vp, i64, vp, vp, vp,
+                                             vp, i64, i64, i32, i32, vp]
+    lib.rans_decode_tiles_launch.restype = i32
+    return lib

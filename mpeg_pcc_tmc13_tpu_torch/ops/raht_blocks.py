@@ -12,9 +12,12 @@ Same public layout and dtypes as the JAX functions: values/coefficients
 
 ``LAUNCHES`` counts kernel launches per kernel (a launch adds one, the
 plain versions add nothing), so a run can show it went through them.
+It is safe to count from several threads (the CLI's slice workers).
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -28,11 +31,18 @@ _STAGES = (
 )
 
 LAUNCHES = {"fwd_blocks": 0, "inv_blocks": 0}
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(name: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _pair(wl, wh):
@@ -146,7 +156,7 @@ def fwd_blocks(vals: torch.Tensor, weights: torch.Tensor):
             wout.data_ptr(), mask.data_ptr(), nb, nc, _stream(vals))
     if rc != 0:
         raise RuntimeError(f"raht_fwd_blocks launch failed: CUDA error {rc}")
-    LAUNCHES["fwd_blocks"] += 1
+    _count("fwd_blocks")
     return coeffs, wout, mask
 
 
@@ -166,5 +176,5 @@ def inv_blocks(coeffs: torch.Tensor, weights: torch.Tensor):
             _stream(coeffs))
     if rc != 0:
         raise RuntimeError(f"raht_inv_blocks launch failed: CUDA error {rc}")
-    LAUNCHES["inv_blocks"] += 1
+    _count("inv_blocks")
     return out

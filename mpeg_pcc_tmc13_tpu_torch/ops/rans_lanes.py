@@ -19,9 +19,12 @@ with ``0xFFFFFFFF`` where the reference's uint32 arithmetic would wrap.
 
 ``LAUNCHES`` counts kernel launches per kernel (a launch adds one, the
 plain versions add nothing), so a run can show it went through them.
+It is safe to count from several threads (the CLI's slice workers).
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -34,11 +37,18 @@ N_CTX = 2048                    # child_idx(3b) << 8 | parent_occupancy
 U32 = 0xFFFFFFFF
 
 LAUNCHES = {"quantize_tables": 0, "encode_emit": 0, "decode_tiles": 0}
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(name: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 # =====================================================================
@@ -182,7 +192,7 @@ def _stream(dev):
 def _launched(name, rc):
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    _count(name)
 
 
 def quantize_tables(hist: torch.Tensor) -> torch.Tensor:

@@ -5,6 +5,11 @@ from __future__ import annotations
 import torch
 
 
+class NoDeviceError(RuntimeError):
+    """A device engine was asked to run with no device given and no
+    CUDA device present."""
+
+
 def resolve(device=None) -> torch.device:
     """``device`` when one is given; otherwise the current CUDA device,
     as the reference engines run on the default accelerator.  Raises
@@ -13,6 +18,7 @@ def resolve(device=None) -> torch.device:
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device= to run this "
-                           "engine on another torch device")
+        raise NoDeviceError("no CUDA device: pass device= (the CLI's "
+                            "--device) to run this engine on another "
+                            "torch device")
     return torch.device("cuda", torch.cuda.current_device())

@@ -22,6 +22,7 @@ from mpeg_pcc_tmc13_tpu.ops import angular as jang
 from mpeg_pcc_tmc13_tpu.ops import motion as jmotion
 from mpeg_pcc_tmc13_tpu_torch.models import geometry_octree as tgo
 from mpeg_pcc_tmc13_tpu_torch.ops import angular as tang
+from mpeg_pcc_tmc13_tpu_torch.ops import motion as tmotion
 from mpeg_pcc_tmc13_tpu_torch.ops import octree as tops
 from mpeg_pcc_tmc13_tpu_torch.utils import morton
 
@@ -225,9 +226,10 @@ def test_device_engine_has_no_host_default():
 
 
 def test_lpu_ctx_size_pinned_to_reference():
-    """LPU_CTX_SIZE is defined in the port (the reference's ops/motion.py
-    reaches jax); it must stay the reference's value."""
-    assert tgo.LPU_CTX_SIZE == jmotion.LPU_CTX_SIZE
+    """The octree contexts take LPU_CTX_SIZE from the port's ops/motion.py,
+    as the reference takes it from its own; the two modules agree."""
+    assert tmotion.LPU_CTX_SIZE == jmotion.LPU_CTX_SIZE
+    assert tgo.LPU_CTX_SIZE is tmotion.LPU_CTX_SIZE
     assert tgo.OctreeContexts().lpu.size == jgo.OctreeContexts().lpu.size
 
 

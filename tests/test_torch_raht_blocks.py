@@ -11,6 +11,10 @@ the same butterflies evaluated in another order; the lane-level cases
 of tests/test_pallas_raht.py keep that file's tolerances.
 """
 
+import sys
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +26,7 @@ from mpeg_pcc_tmc13_tpu.ops import raht_device as jrd
 from mpeg_pcc_tmc13_tpu_torch.ops import _kernels
 from mpeg_pcc_tmc13_tpu_torch.ops import raht_blocks as rb
 from mpeg_pcc_tmc13_tpu_torch.ops import raht_device as trd
+from mpeg_pcc_tmc13_tpu_torch.ops import rans_lanes as lanes
 from mpeg_pcc_tmc13_tpu_torch.utils import morton as tmorton
 
 torch.set_num_threads(2)
@@ -153,6 +158,65 @@ def test_library_path_keys_on_sources(monkeypatch, tmp_path):
     assert first == _kernels.library_path()
     (src / "a.cu").write_text("// two\n")
     assert _kernels.library_path() != first
+
+
+def test_load_builds_once_under_concurrent_first_use(monkeypatch):
+    """Two threads that reach the kernels for the first time together
+    (the CLI's slice workers): the slow build runs once and both get the
+    same library."""
+    built = []
+
+    def slow_build():
+        built.append(threading.get_ident())
+        time.sleep(0.3)
+        return tmp_so, 0.0
+
+    tmp_so = _kernels.BUILD_DIR / "fake.so"     # never opened
+    monkeypatch.setattr(_kernels, "_LIB", None)
+    monkeypatch.setattr(_kernels, "_build", slow_build)
+    monkeypatch.setattr(_kernels, "_open", lambda so: object())
+    start = threading.Barrier(2, timeout=30)
+    got = []
+
+    def first_use():
+        start.wait()
+        got.append(_kernels.load())
+
+    threads = [threading.Thread(target=first_use) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    assert len(built) == 1
+    assert len(got) == 2 and got[0] is got[1]
+
+
+def test_launch_counts_are_thread_safe():
+    """The launch counters of both wrapper modules add up exactly when
+    the CLI's worker threads count at once."""
+    def count(mod, name):
+        for _ in range(20_000):
+            mod._count(name)
+
+    # switch threads as often as the interpreter can, so a race shows
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for mod, name in ((rb, "fwd_blocks"), (lanes, "decode_tiles")):
+            mod.reset_launch_counts()
+            threads = [threading.Thread(target=count, args=(mod, name))
+                       for _ in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+                assert not t.is_alive()
+            assert mod.LAUNCHES[name] == 80_000
+            mod.reset_launch_counts()
+            assert set(mod.LAUNCHES.values()) == {0}
+    finally:
+        sys.setswitchinterval(interval)
 
 
 def _cloud(n, depth, c=3, seed=0):

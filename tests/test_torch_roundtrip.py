@@ -147,6 +147,27 @@ _JAX_BLOCKED = textwrap.dedent("""
                   ctx_mode=octree.CTX_MODE_NEIGH, device="cpu")
         streams.append(enc.get_bytes())
     assert streams[0] == streams[1]
+
+    # the port's CLI: a rANS + RAHT colour encode and its decode
+    import os
+    import tempfile
+    from mpeg_pcc_tmc13_tpu.utils import ply
+    from mpeg_pcc_tmc13_tpu_torch.runtime import cli
+    cols = (pos * 37 % 256).astype(np.uint16)
+    flags = ["--geomEngine=rans", "--device=cpu"]
+    with tempfile.TemporaryDirectory() as d:
+        ply.write(ply.PlyCloud(positions=pos.astype(np.float64),
+                               colors=cols),
+                  os.path.join(d, "in.ply"), position_is_float=False)
+        assert cli.main(["--mode=0", "--uncompressedDataPath=" + d
+                         + "/in.ply", "--compressedStreamPath=" + d
+                         + "/s.bin", "--attribute=color", *flags]) == 0
+        assert cli.main(["--mode=1", "--compressedStreamPath=" + d
+                         + "/s.bin", "--reconstructedDataPath=" + d
+                         + "/out.ply", *flags]) == 0
+        rec = ply.read(os.path.join(d, "out.ply"))
+    assert np.array_equal(morton.encode(rec.positions.astype(np.int64)),
+                          uniq)
     assert not any(m == "jax" or m.startswith(("jax.", "jaxlib"))
                    for m in sys.modules)
     print("NO_JAX_OK", uniq.size)
