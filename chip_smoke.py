@@ -8,12 +8,16 @@ Drives the port's main path (``mpeg_pcc_tmc13_tpu_torch``) once on
 
   (a) device identity: torch's device name and nvidia-smi's name and
       power limit (the nvidia-smi line is printed on its own),
-  (b) build of the hand-written CUDA kernels from ``csrc/`` with nvcc,
-  (c) each kernel against its plain PyTorch version on the card,
+  (b) build of the port's native host library from ``native/`` with g++
+      (its path and build seconds) and of the hand-written CUDA kernels
+      from ``csrc/`` with nvcc,
+  (c) each block kernel against its plain PyTorch version on the card,
+      bit for bit, at ragged batch sizes and all 256 occupancy patterns,
   (d) the device round trip at the bench size (1M-point surface cloud,
       depth 11, qp 22): geometry encode/decode, fixed-point RAHT colour
       encode/decode, the float RAHT lane, each checked against its
-      reference, with the kernels' launch counts from this run,
+      reference, with the kernels' launch counts from this run; first,
+      the entry points called without a device run on ``cuda:0``,
   (e) a depth-21 geometry round trip (the 63-bit Morton domain),
   (g) the rANS brick at the bench size through ``models.geometry_rans``
       (the three rANS lane kernels), its payload held to the plain
@@ -34,8 +38,11 @@ Drives the port's main path (``mpeg_pcc_tmc13_tpu_torch``) once on
       positions and the same colours, the device engine analysed on the
       card and every rANS kernel launched,
   (f) timing: the stage times of a second (warm) round trip, and each
-      kernel against its plain version at the shapes of (d) and (g),
-      plus the rANS encode/decode wall times.
+      kernel against its plain version at the shapes of (d) and (g):
+      the pass through the wrappers (CUDA events), its device time (the
+      pass replayed as a CUDA graph), the largest level alone for the
+      block kernels, and each kernel's bound; plus the rANS
+      encode/decode wall times.
 
 Then one JSON line with the kernels and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -63,10 +70,11 @@ BENCH_DEPTH = 11
 BENCH_QP = 22
 DEEP_POINTS = 200_000
 DEEP_DEPTH = 21
-CHECK_BLOCKS = 300_001          # not a multiple of any tile
-KERNEL_RTOL = 1e-5              # of max(1, max|ref|)
+CHECK_BLOCKS = (1, 3, 31, 300_001)   # ragged against warps and tiles
 PARSEVAL_MAX = 1e-3
 TIMING_REPS = 10
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA's data sheet
+FP32_FLOPS_PER_S = 67e12        # fp32 outside the tensor cores
 
 SLOW_REPS = 2                   # plain rANS passes take ~1 s each
 REPO = Path(__file__).resolve().parent
@@ -104,7 +112,7 @@ def _block_inputs(nblocks, nchan, seed, device):
     import torch
     rng = np.random.default_rng(seed)
     pat = rng.integers(0, 256, nblocks)
-    pat[:256] = np.arange(256)
+    pat[:256] = np.arange(min(nblocks, 256))
     occ = ((pat[:, None] >> np.arange(8)) & 1).astype(bool)
     w = np.where(occ, rng.integers(1, 65, (nblocks, 8)), 0)
     v = rng.normal(0, 50, (nblocks, 8, nchan))
@@ -118,37 +126,38 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _rel_tol(ref):
-    return KERNEL_RTOL * max(1.0, float(ref.abs().max()))
-
-
 def phase_c(device):
-    """Each kernel against its plain version on the same CUDA inputs."""
+    """Each block kernel against its plain version on the same CUDA
+    inputs, bit for bit, at ragged batch sizes (a partial warp and a
+    partial thread block), for reflectance and colour."""
     import torch
 
     from mpeg_pcc_tmc13_tpu_torch.ops import raht_blocks as rb
     errs = {"fwd_blocks": 0.0, "inv_blocks": 0.0}
-    for nchan in (1, 3):
-        v, w = _block_inputs(CHECK_BLOCKS, nchan, nchan, device)
+    shapes = [(b, c) for c in (1, 3) for b in CHECK_BLOCKS]
+    for nblocks, nchan in shapes:
+        v, w = _block_inputs(nblocks, nchan, nblocks + nchan, device)
         coeffs, wout, mask = rb.fwd_blocks(v, w)
         rc, rw, rm = rb.fwd_blocks_ref(v, w)
         _sync(device)
-        _check(torch.equal(mask, rm), f"fwd mask differs (C={nchan})")
-        _check(torch.equal(wout, rw), f"fwd wout differs (C={nchan})")
-        e = float((coeffs - rc).abs().max())
-        _check(e <= _rel_tol(rc), f"fwd coeffs off by {e} (C={nchan})")
-        errs["fwd_blocks"] = max(errs["fwd_blocks"], e)
-
+        _check(torch.equal(mask, rm), f"fwd mask differs (B={nblocks}, "
+               f"C={nchan})")
+        _check(torch.equal(wout, rw), f"fwd wout differs (B={nblocks}, "
+               f"C={nchan})")
+        e_fwd = float((coeffs - rc).abs().max())
         back = rb.inv_blocks(rc, w)
         rback = rb.inv_blocks_ref(rc, w)
         _sync(device)
-        e = float((back - rback).abs().max())
-        _check(e <= _rel_tol(rback), f"inv children off by {e} (C={nchan})")
-        errs["inv_blocks"] = max(errs["inv_blocks"], e)
-        _line("c", C=nchan, blocks=CHECK_BLOCKS, mask_wout="identical",
-              fwd_max_abs_err=errs["fwd_blocks"],
-              inv_max_abs_err=errs["inv_blocks"],
-              tol=f"{KERNEL_RTOL}*max(1,max|ref|)")
+        e_inv = float((back - rback).abs().max())
+        _check(e_fwd == 0.0 and e_inv == 0.0,
+               f"a block kernel differs from its plain version (B={nblocks}"
+               f", C={nchan}): fwd {e_fwd}, inv {e_inv}")
+        errs["fwd_blocks"] = max(errs["fwd_blocks"], e_fwd)
+        errs["inv_blocks"] = max(errs["inv_blocks"], e_inv)
+    _line("c", shapes=",".join(f"{b}x{c}" for b, c in shapes),
+          patterns=256, mask_wout="identical",
+          fwd_max_abs_err=errs["fwd_blocks"],
+          inv_max_abs_err=errs["inv_blocks"], tol=0)
     return errs
 
 
@@ -156,6 +165,36 @@ def bench_cloud(n=BENCH_POINTS, depth=BENCH_DEPTH):
     from mpeg_pcc_tmc13_tpu_torch.runtime import roundtrip as rt
     uniq = rt.sorted_unique_codes(rt.make_surface_cloud(n, depth))
     return uniq, rt._colors_for(uniq, depth)
+
+
+def _default_device_check(device):
+    """The entry points called without ``device`` run on the current
+    CUDA device (a small cloud; before (d)'s counted run)."""
+    from mpeg_pcc_tmc13_tpu_torch import host
+    from mpeg_pcc_tmc13_tpu_torch.models.geometry_octree import \
+        OctreeContexts
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_device, raht_fp_device
+    from mpeg_pcc_tmc13_tpu_torch.runtime import device_pipeline as dp
+    from mpeg_pcc_tmc13_tpu_torch.runtime import roundtrip as rt
+    depth = 8
+    uniq, colors = bench_cloud(n=20_000, depth=depth)
+    r = rt.device_roundtrip(uniq, depth, colors)
+    enc = host.RangeEncoder()
+    dp.encode_pipelined(uniq, depth, enc, OctreeContexts(), num_slices=1)
+    (nodes, cnt), = dp.decode_pipelined(host.RangeDecoder(enc.get_bytes()),
+                                        OctreeContexts(), depth, 1,
+                                        uniq.size)
+    acs, root = raht_device.forward_device(uniq, colors, depth)
+    back = raht_device.inverse_device(uniq, acs, root, depth)
+    fp = raht_fp_device.DeviceFpRaht(uniq, depth, [1 << 16] * 3)
+    devices = {nodes.device, root.device, back.device, fp.device}
+    _check(devices == {device} and all(r.launches.values())
+           and np.array_equal(nodes[:int(cnt)].cpu().numpy(), uniq)
+           and np.array_equal(r.decoded_codes, uniq),
+           f"an entry point without device= ran on {devices} "
+           f"(launches {r.launches}), not {device}")
+    _line("d", default_device=str(device), entry_points=5,
+          points=uniq.size)
 
 
 def phase_d(device, uniq, depth, colors, qp=BENCH_QP):
@@ -168,6 +207,7 @@ def phase_d(device, uniq, depth, colors, qp=BENCH_QP):
     from mpeg_pcc_tmc13_tpu_torch.runtime import device_pipeline as dp
     from mpeg_pcc_tmc13_tpu_torch.runtime import roundtrip as rt
 
+    _default_device_check(device)
     rb.reset_launch_counts()
     r = rt.device_roundtrip(uniq, depth, colors, qp=qp, device=device)
     launches = dict(rb.LAUNCHES)
@@ -714,23 +754,125 @@ def _time_pass_ms(run_pass, reps=TIMING_REPS):
     return start.elapsed_time(stop) / reps
 
 
+def _graph_ms(run_pass, reps=TIMING_REPS):
+    """Device ms of one ``run_pass()``: the pass captured once in a CUDA
+    graph (the wrappers enqueue on the current stream, which is the
+    capture stream), its replays timed with CUDA events, so host issue
+    time drops out."""
+    import torch
+    run_pass()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run_pass()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / reps
+    del graph
+    return ms
+
+
+def _io_bytes(*tensors):
+    """Bytes of the given tensors, each counted once."""
+    import torch
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def _bound_ms(nbytes, flops=0.0):
+    """(least ms, what bounds it): the bytes over the H100's memory rate
+    against the fp32 operations over its fp32 rate outside the tensor
+    cores."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = flops / FP32_FLOPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
 def _turns(name, kern, ref, reps_plain=TIMING_REPS, **shape):
-    """Plain, kernel, kernel, plain; returns (kernel ms, plain ms)."""
+    """Plain, kernel, kernel, plain, then the kernel's pass as a replayed
+    CUDA graph twice; returns (kernel ms, plain ms, device ms)."""
     p1 = _time_pass_ms(ref, reps_plain)
     k1 = _time_pass_ms(kern)
     k2 = _time_pass_ms(kern)
     p2 = _time_pass_ms(ref, reps_plain)
+    d1 = _graph_ms(kern)
+    d2 = _graph_ms(kern)
     _line("f", kernel=name, **shape, kernel_ms=f"{k1:.4f},{k2:.4f}",
-          plain_ms=f"{p1:.4f},{p2:.4f}")
-    return min(k1, k2), min(p1, p2)
+          plain_ms=f"{p1:.4f},{p2:.4f}", device_ms=f"{d1:.4f},{d2:.4f}")
+    return min(k1, k2), min(p1, p2), min(d1, d2)
 
 
-def phase_f(device, uniq, depth, colors, rans):
-    """Informational timing: stage times of a warm round trip and of a
-    warm rANS round trip, and each kernel against its plain version at
-    the shapes of (d) and (g), in turns plain, kernel, kernel, plain."""
-    from mpeg_pcc_tmc13_tpu_torch.models import geometry_rans as gr
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _level_check(name, kern, ref, inputs, device):
+    """``kern`` against ``ref`` on each level's inputs: the max abs
+    difference over all outputs; fails unless every output is
+    identical."""
+    import torch
+    err = 0.0
+    for a in inputs:
+        got, want = _as_tuple(kern(*a)), _as_tuple(ref(*a))
+        _sync(device)
+        err = max(err, _max_abs_diff(zip(got, want)))
+        _check(all(torch.equal(g, w) for g, w in zip(got, want)),
+               f"{name} differs from its plain version at a level of (d) "
+               f"(B={a[0].shape[0]}): max abs {err}")
+    return err
+
+
+def _block_times(device, uniq, depth, colors, errs):
+    """B1/B2 over the float lane's levels of (d): each level's outputs
+    against the plain version's, bit for bit (into ``errs``), then the
+    pass through the wrappers (CUDA events), its device time (graph
+    replay), the largest level alone, and the bound of each."""
     from mpeg_pcc_tmc13_tpu_torch.ops import raht_blocks as rb
+    fwd, inv = _level_inputs(uniq, colors, depth, device)
+    times = {}
+    for name, kern, ref, inputs in (
+            ("fwd_blocks", rb.fwd_blocks, rb.fwd_blocks_ref, fwd),
+            ("inv_blocks", rb.inv_blocks, rb.inv_blocks_ref, inv)):
+        err = _level_check(name, kern, ref, inputs, device)
+        errs[name] = max(errs[name], err)
+        _line("f", kernel=name, levels_checked=len(inputs),
+              outputs="identical", level_max_abs_err=err, tol=0)
+        nblocks = sum(a[0].shape[0] for a in inputs)
+        k, p, d = _turns(
+            name, lambda: [kern(*a) for a in inputs],
+            lambda: [ref(*a) for a in inputs], levels=len(inputs),
+            blocks=nblocks)
+        nbytes = sum(_io_bytes(*a, *ref(*a)) for a in inputs)
+        nchan = inputs[0][0].shape[2]
+        # per pair: 3 sqrt, 2 divisions, an add, compares and selects;
+        # per pair and channel: 4 products and 2 sums
+        bound, by = _bound_ms(nbytes, nblocks * 7 * (6 + 6 * nchan))
+        big = max(inputs, key=lambda a: a[0].shape[0])
+        big_ms = _graph_ms(lambda: kern(*big))
+        big_bound, _ = _bound_ms(_io_bytes(*big, *ref(*big)))
+        _line("f", kernel=name, pass_ms=f"{k:.4f}", device_ms=f"{d:.4f}",
+              bound_ms=f"{bound:.4f}", bound_by=by,
+              share=f"{bound / d:.3f}", bytes=nbytes,
+              largest_level_blocks=big[0].shape[0],
+              largest_level_ms=f"{big_ms:.4f}",
+              largest_level_bound_ms=f"{big_bound:.4f}",
+              largest_level_share=f"{big_bound / big_ms:.3f}")
+        times[name] = (k, p, d, bound, by)
+    return times
+
+
+def phase_f(device, uniq, depth, colors, rans, errs):
+    """Stage times of a warm round trip and of a warm rANS round trip,
+    B1/B2 checked at every level of (d), and each kernel timed against
+    its plain version at the shapes of (d) and (g), in turns plain,
+    kernel, kernel, plain."""
+    from mpeg_pcc_tmc13_tpu_torch.models import geometry_rans as gr
     from mpeg_pcc_tmc13_tpu_torch.ops import rans_lanes as L
     from mpeg_pcc_tmc13_tpu_torch.runtime import roundtrip as rt
     from mpeg_pcc_tmc13_tpu_torch.utils import morton
@@ -753,33 +895,55 @@ def phase_f(device, uniq, depth, colors, rans):
           rans_decode_s=f"{rans.decode_s:.4f},{t2 - t1:.4f}",
           note="first,warm")
 
-    fwd, inv = _level_inputs(uniq, colors, depth, device)
-    times = {}
-    for name, kern, ref, inputs in (
-            ("fwd_blocks", rb.fwd_blocks, rb.fwd_blocks_ref, fwd),
-            ("inv_blocks", rb.inv_blocks, rb.inv_blocks_ref, inv)):
-        times[name] = _turns(
-            name, lambda: [kern(*a) for a in inputs],
-            lambda: [ref(*a) for a in inputs], levels=len(inputs),
-            blocks=sum(a[0].shape[0] for a in inputs))
-
+    times = _block_times(device, uniq, depth, colors, errs)
     nwin = len(rans.windows)
-    times["quantize_tables"] = _turns(
+    k, p, d = _turns(
         "quantize_tables",
         lambda: [L.quantize_tables(rans.hist) for _ in range(nwin)],
         lambda: [L.quantize_tables_ref(rans.hist) for _ in range(nwin)],
         calls=nwin, shape="2048x256")
+    times["quantize_tables"] = (k, p, d, *_bound_ms(
+        nwin * 2 * _io_bytes(rans.hist)))
     args = (rans.f_steps, rans.c_steps, rans.nvalid)
-    times["encode_emit"] = _turns(
+    k, p, d = _turns(
         "encode_emit", lambda: L.encode_emit(*args),
         lambda: L.encode_emit_ref(*args), reps_plain=SLOW_REPS,
         steps=rans.f_steps.shape[0], lanes=rans.f_steps.shape[1])
+    times["encode_emit"] = (k, p, d, *_bound_ms(
+        _io_bytes(*args, *L.encode_emit(*args))))
     st_k, st_p = _new_tile_state(rans), _new_tile_state(rans)
-    times["decode_tiles"] = _turns(
+    k, p, d = _turns(
         "decode_tiles", lambda: _replay_tiles(L.decode_tiles, rans, st_k),
         lambda: _replay_tiles(L.decode_tiles_ref, rans, st_p),
         reps_plain=SLOW_REPS, calls=nwin, lanes=rans.f_steps.shape[1])
+    times["decode_tiles"] = (k, p, d, *_bound_ms(_tiles_bytes(rans,
+                                                            st_k[3])))
+    for name in ("quantize_tables", "encode_emit", "decode_tiles"):
+        k, p, d, bound, by = times[name]
+        _line("f", kernel=name, pass_ms=f"{k:.4f}", device_ms=f"{d:.4f}",
+              bound_ms=f"{bound:.4f}", bound_by=by,
+              share=f"{bound / d:.4f}")
     return times
+
+
+def _tiles_bytes(run, syms):
+    """What ``decode_tiles`` must move over (g)'s decode, from this
+    run's decoded symbols ``syms`` (per level): per window the context
+    id it reads and the symbol it writes for each decoded symbol, the
+    table entries c[s-1] and c[s] of each distinct (context, symbol) it
+    decodes, and each distinct histogram bin it bumps, read and written
+    once; the words once; the lane states in and out."""
+    import torch
+    K = run.states0.shape[0]
+    nbytes = run.words.shape[0] * 4 + 2 * _io_bytes(run.states0)
+    for l, _, ctx_row, count, t0, nt in run.windows:
+        a, b = t0 * K, min(count, (t0 + nt) * K)
+        if b <= a:
+            continue
+        bins = ctx_row[a:b].long() * 256 + syms[l][a:b].long()
+        entries = torch.unique(torch.cat([bins - 1, bins])).numel()
+        nbytes += (b - a) * 8 + entries * 4 + torch.unique(bins).numel() * 8
+    return nbytes
 
 
 def main() -> int:
@@ -791,11 +955,6 @@ def main() -> int:
     device = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
 
-    from mpeg_pcc_tmc13_tpu_torch import host
-    from mpeg_pcc_tmc13_tpu_torch.ops import _kernels
-    if not host.native_available():
-        raise RuntimeError("the native entropy library did not build")
-
     # (a) device identity
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -805,7 +964,16 @@ def main() -> int:
           torch=torch.__version__, cuda=torch.version.cuda)
     print(smi, flush=True)
 
-    # (b) kernel build from the sources in this checkout
+    # (b) builds from the sources in this checkout: the port's native
+    # host library (g++, on the package's first import) and the CUDA
+    # kernels (nvcc)
+    from mpeg_pcc_tmc13_tpu_torch.bitstream import entropy
+    from mpeg_pcc_tmc13_tpu_torch.ops import _kernels
+    if not entropy.native_available():
+        raise RuntimeError("the port's native library did not build")
+    _line("b", native_library=os.path.relpath(entropy.LIB_PATH, REPO),
+          gxx_s=f"{entropy.BUILD_SECONDS:.1f}",
+          gxx_flags="_".join(entropy.CXXFLAGS))
     so, secs = _kernels.build()
     _kernels.load()
     _line("b", library=so.name, nvcc_s=f"{secs:.1f}",
@@ -823,16 +991,19 @@ def main() -> int:
     phase_i(device, uniq, BENCH_DEPTH)                         # (i)
     phase_j(device, uniq, BENCH_DEPTH, r.geom_payload)         # (j)
     phase_k(device, uniq, BENCH_DEPTH, colors, smi)            # (k)
-    times = phase_f(device, uniq, BENCH_DEPTH, colors, rans)   # (f)
+    times = phase_f(device, uniq, BENCH_DEPTH, colors, rans,   # (f)
+                    errs)
 
     kernels = []
     for key, (name, src, replaces) in KERNELS.items():
+        ms, plain_ms, device_ms, bound_ms, bound_by = times[key]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"mpeg_pcc_tmc13_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": launches[key],
-            "max_abs_err": errs[key], "ms": times[key][0],
-            "plain_ms": times[key][1]})
+            "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
+            "device_ms": device_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

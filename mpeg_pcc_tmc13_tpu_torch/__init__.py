@@ -29,21 +29,23 @@ What is ported:
   quantisation, partitioning, recolouring, motion and levels of detail.
   Trisoup geometry and the tmc3 syntax family are not ported yet.
 
-The jax-free host layer of the reference package (the native range
-coder, the numpy fixed-point RAHT spec and its planner, the angular
-laser helpers, the bitstream syntax, PLY I/O, the conformance
-parameter sets) is shared, not copied; ``host`` re-exports what callers
-of the port need from it.  Code that reaches jax only through its
-Morton codes is copied here with the port's ``utils.morton``: whole
-modules (the frame codec above) or single functions
-(``ops.angular.node_angular_ctx``, ``models.attributes.encode``/
-``decode``, ``models.geometry_obuf.decode``).  This package never
-imports jax.
+The package stands alone: it imports neither jax nor anything of
+``mpeg_pcc_tmc13_tpu``.  The host layer it needs from the reference
+package is copied under the same relative paths, with only the imports
+changed, so each copy names its counterpart by its path: the range
+coder and bitstream syntax (``bitstream/``), PLY I/O, option parsing
+and timing (``utils/``), the point cloud and frame store, the numpy
+RAHT specs and their planner (``ops/raht.py``, ``raht_fp.py``, the
+planner in ``raht_fp_device.py``), the angular and coordinate helpers,
+the reference-syntax pieces the OBUF engine uses (``conformance/``) and
+the C++ of the native library (``native/``), which
+``bitstream.entropy`` builds with ``g++`` into ``build/tmc13_native/``
+on first import.  ``host`` re-exports what callers need from it.
 
-Importing it needs no GPU.  Public entry points take a ``device``; the
-model engines (``models.geometry_rans``, ``models.geometry_octree``'s
-``"device"`` engine) default to the current CUDA device and raise
-without one.  A CPU tensor runs the plain PyTorch versions of the
+Importing it needs no GPU.  Public entry points take a ``device``
+and default to the current CUDA device, raising ``utils.device.
+NoDeviceError`` without one (pass ``device="cpu"`` to run on the
+host).  A CPU tensor runs the plain PyTorch versions of the
 kernels, a CUDA tensor launches the kernels (built with ``nvcc`` on
 first use) or raises.
 """

@@ -24,8 +24,8 @@ import os
 
 import numpy as np
 
-from mpeg_pcc_tmc13_tpu.bitstream import entropy
-from mpeg_pcc_tmc13_tpu.bitstream.hls import (AttributeDescription,
+from ..bitstream import entropy
+from ..bitstream.hls import (AttributeDescription,
                                               AttributeEncoding,
                                               AttributeParameterSet)
 

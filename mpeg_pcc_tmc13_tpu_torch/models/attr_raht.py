@@ -16,10 +16,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from mpeg_pcc_tmc13_tpu.bitstream import entropy
-from mpeg_pcc_tmc13_tpu.bitstream.hls import (AttributeDescription,
+from ..bitstream import entropy
+from ..bitstream.hls import (AttributeDescription,
                                               AttributeParameterSet)
-from mpeg_pcc_tmc13_tpu.ops import raht as raht_ops
+from ..ops import raht as raht_ops
 
 from ..utils import morton
 from .attributes import AttributeContexts, RES_CTX_SIZE, ZRUN_CTX_SIZE, \
@@ -199,7 +199,7 @@ def _ref_pyramid(ref, aps, depth, haar):
     if ref is None or not aps.inter_prediction_enabled \
             or not aps.raht_prediction_enabled or not len(ref[0]):
         return None
-    from mpeg_pcc_tmc13_tpu.ops.raht import ref_mean_pyramid
+    from ..ops.raht import ref_mean_pyramid
     return ref_mean_pyramid(
         morton.encode(np.asarray(ref[0], dtype=np.int64)),
         ref[1], depth, haar)
@@ -250,7 +250,7 @@ def encode(values: np.ndarray, positions: np.ndarray,
             and not lcp_on):
         # fixed-point mode (ops/raht_fp.py): deterministic integers,
         # identical streams from numpy / native C++ / device kernels
-        from mpeg_pcc_tmc13_tpu.ops import raht_fp
+        from ..ops import raht_fp
 
         def emit(q, tag):
             enc.zrow_residuals(ctx.zrow, q.astype(np.int32))
@@ -364,7 +364,7 @@ def decode(data: bytes, positions: np.ndarray,
             and not haar and n > 1
             and _ref_pyramid(ref, aps, depth, haar) is None
             and not lcp_on):
-        from mpeg_pcc_tmc13_tpu.ops import raht_fp
+        from ..ops import raht_fp
         if _native_fastpath_ok(dec, aps, abh, haar, ncomp, steps) \
                 and hasattr(entropy._LIB, "raht_decode_fp"):
             import ctypes as _ct

@@ -1,23 +1,88 @@
-"""Attribute coding front-end: counterpart of
-``mpeg_pcc_tmc13_tpu/models/attributes.py``.
+"""Attribute coding front-end: per-attribute dispatch to codec families.
 
-The context memories, the raw codec and the context-layout constants
-are the reference's own (that module is jax-free at its top) and are
-re-exported here.  ``encode``/``decode`` are copied: their Morton order
-and codec dispatch reach the port's ``utils.morton``, ``attr_raht`` and
-``attr_predlift`` instead of the reference's.
+Counterpart of the reference's `AttributeEncoder::encode`
+(AttributeEncoder.cpp:465-634) / `AttributeDecoder::decode`
+(AttributeDecoder.cpp:193-260) and `makeAttributeEncoder`
+(AttributeEncoder.cpp:456).  Families (reference hls.h:132-138):
+RAHT=0, Pred=1, Lift=2, Raw=3.
+
+Attributes arrive already in geometry coding order (the permutation
+returned by the geometry codec), as the reference codes attributes over
+the decode-ordered cloud.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+
 import numpy as np
 
-from mpeg_pcc_tmc13_tpu.bitstream.hls import (AttributeDescription,
-                                              AttributeEncoding,
-                                              AttributeParameterSet)
-from mpeg_pcc_tmc13_tpu.models.attributes import (  # noqa: F401
-    _RES_K, _RES_PREFIX_MAX, RES_CTX_SIZE, ZRUN_CTX_SIZE, AttributeContexts,
-    decode_raw, encode_raw)
+from ..bitstream import entropy
+from ..bitstream.hls import (AttributeDescription, AttributeEncoding,
+                             AttributeParameterSet)
+
+# residual coder context layout (bitstream/entropy.py residuals op):
+# ctx[0..1] zero-run flag by prev, ctx[2..2+prefix] ueg prefix
+_RES_PREFIX_MAX = 3
+_RES_K = 2
+RES_CTX_SIZE = 2 + _RES_PREFIX_MAX + 8
+# zero-run residual layout (entropy.py zrun_residuals): run prefix then
+# magnitude prefix
+ZRUN_CTX_SIZE = entropy.ZRUN_PREFIX + _RES_PREFIX_MAX + 8
+# joint row coder (entropy.py zrow_residuals; native kZrowCtx)
+ZROW_CTX_SIZE = 31
+
+
+@dataclass
+class AttributeContexts:
+    """Entropy contexts for attribute residual coding (reference
+    AttributeContexts, AttributeCommon.h:49-66)."""
+    residuals: np.ndarray = field(
+        default_factory=lambda: entropy.new_contexts(3 * RES_CTX_SIZE))
+    # sparse zero-run streams (RAHT coefficients)
+    zrun: np.ndarray = field(
+        default_factory=lambda: entropy.new_contexts(3 * ZRUN_CTX_SIZE))
+    # joint row streams (RAHT coefficient rows)
+    zrow: np.ndarray = field(
+        default_factory=lambda: entropy.new_contexts(ZROW_CTX_SIZE))
+    # per-point prediction mode bits (reference predMode coding)
+    pred_modes: np.ndarray = field(
+        default_factory=lambda: entropy.new_contexts(2))
+
+    def copy(self):
+        return AttributeContexts(self.residuals.copy(),
+                                 self.zrun.copy(),
+                                 self.zrow.copy(),
+                                 self.pred_modes.copy())
+
+
+def encode_raw(values: np.ndarray, desc: AttributeDescription) -> bytes:
+    """Fixed-width uncompressed attribute payload (reference
+    attribute_raw.h:47-55).  Vectorised MSB-first bit packing."""
+    flat = values.reshape(values.shape[0], -1).astype(np.int64).ravel()
+    bd = desc.bitdepth
+    if flat.size and (flat.min() < 0 or flat.max() >= (1 << bd)):
+        raise ValueError(
+            f"RAW attribute value out of range for bitdepth {bd}: "
+            f"[{flat.min()}, {flat.max()}] (check attr_scale/attr_offset)")
+    shifts = np.arange(bd - 1, -1, -1, dtype=np.int64)
+    bits = ((flat[:, None] >> shifts[None, :]) & 1).astype(np.uint8)
+    return np.packbits(bits.ravel()).tobytes()
+
+
+def decode_raw(data: bytes, count: int,
+               desc: AttributeDescription) -> np.ndarray:
+    ncomp = desc.num_components
+    bd = desc.bitdepth
+    total = count * ncomp
+    bits = np.unpackbits(np.frombuffer(data, dtype=np.uint8),
+                         count=total * bd)
+    weights = (np.int64(1) << np.arange(bd - 1, -1, -1)).astype(np.int64)
+    vals = bits.reshape(total, bd).astype(np.int64) @ weights
+    out = vals.reshape(count, ncomp)
+    if ncomp == 1:
+        return out[:, 0]
+    return out
 
 
 def _morton_perm(positions: np.ndarray):

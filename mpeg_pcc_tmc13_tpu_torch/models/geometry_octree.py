@@ -9,7 +9,7 @@ geometry_octree_decoder.cpp:1559).
 
 Three interchangeable engines emit byte-identical streams:
   "numpy"  — host mirror (executable spec),
-  "native" — one C++ call for the whole tree (the shared native
+  "native" — one C++ call for the whole tree (the port's native
              library); the fast path on a single host core,
   "device" — the full-depth analysis on a torch device
              (``ops.octree.encode_analysis_packed``), compacted there so
@@ -29,7 +29,7 @@ from dataclasses import dataclass, field, fields
 import numpy as np
 import torch
 
-from mpeg_pcc_tmc13_tpu.bitstream import entropy
+from ..bitstream import entropy
 
 from ..ops import octree as ops
 from ..ops.motion import LPU_CTX_SIZE

@@ -27,7 +27,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from mpeg_pcc_tmc13_tpu.bitstream import entropy
+from ..bitstream import entropy
 
 from ..utils import morton
 
@@ -135,7 +135,7 @@ def encode(positions: np.ndarray, enc, ctx: PredGeomContexts,
     inter flag + ref node, geometry_predictive.h:84-137).
     """
     if angular:
-        from mpeg_pcc_tmc13_tpu.ops import coords
+        from ..ops import coords
         order = sort_points(positions, SortMode.AZIMUTH if
                             sort_mode == SortMode.MORTON else sort_mode)
         pc = positions.astype(np.int64)[order]
@@ -398,7 +398,7 @@ def decode(num_points: int, dec, ctx: PredGeomContexts,
     if n == 0:
         return np.zeros((0, 3), dtype=np.int64)
     if angular:
-        from mpeg_pcc_tmc13_tpu.ops import coords
+        from ..ops import coords
         if origin is not None:
             centre3 = np.asarray(origin, dtype=np.int64)
         else:

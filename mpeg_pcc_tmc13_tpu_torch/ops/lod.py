@@ -70,7 +70,7 @@ def assign_lod_levels_dist2(positions: np.ndarray, num_levels: int,
     retain-if-isolated walk in Morton order with dist2 quartering per
     level.  Native serial pass (lod.cc); falls back to a pure-python
     walk for small inputs."""
-    from mpeg_pcc_tmc13_tpu.bitstream import entropy
+    from ..bitstream import entropy
     n = positions.shape[0]
     if n == 0:
         return np.zeros(0, dtype=np.int32)
@@ -183,7 +183,7 @@ def knn_predictors(positions: np.ndarray, levels: np.ndarray,
     order_all = np.argsort(codes, kind="stable")
     lev_sorted = aug_levels[order_all]
 
-    from mpeg_pcc_tmc13_tpu.bitstream import entropy as _ent
+    from ..bitstream import entropy as _ent
     native = _ent._LIB is not None
     if native:
         import ctypes as _ct

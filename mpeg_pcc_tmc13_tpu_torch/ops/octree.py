@@ -340,12 +340,12 @@ def encode_analysis_packed(leaf_codes_sorted: torch.Tensor, depth: int,
 def occ_code_tables():
     """(lens (256,) int32, rev_codes (256,) int64) of the static link
     code (reference ``_occ_code_tables``, ops/octree.py:484-506), read
-    from the shared native library (native/occ_code.inc).  Codes are
+    from the port's native library (native/occ_code.inc).  Codes are
     bit-reversed for LSB-first emission into little-endian uint32
     words."""
     import ctypes
 
-    from mpeg_pcc_tmc13_tpu.bitstream import entropy
+    from ..bitstream import entropy
     if entropy._LIB is None:
         raise RuntimeError("the native entropy library is not loaded: the "
                            "link code table lives there")

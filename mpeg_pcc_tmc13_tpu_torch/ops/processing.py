@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from mpeg_pcc_tmc13_tpu.models.pointcloud import PointCloud
+from ..models.pointcloud import PointCloud
 
 from ..utils import morton
 

@@ -30,6 +30,9 @@ _STAGES = (
     ((0, 4),),
 )
 
+# the kernels are built for reflectance (1) and colour (3) channels
+KERNEL_CHANNELS = (1, 3)
+
 LAUNCHES = {"fwd_blocks": 0, "inv_blocks": 0}
 _COUNT_LOCK = threading.Lock()
 
@@ -128,6 +131,9 @@ def _kernel_inputs(vals, weights):
     _check("weights", weights, 2, torch.float32, dev)
     if weights.shape[0] != vals.shape[0]:
         raise ValueError("values and weights disagree on B")
+    if vals.shape[2] not in KERNEL_CHANNELS:
+        raise ValueError(f"the kernels take {KERNEL_CHANNELS} channels, "
+                         f"got {vals.shape[2]}")
     return vals.shape[0], vals.shape[2]
 
 

@@ -16,6 +16,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..utils.device import resolve as resolve_device
 from . import raht_blocks
 
 
@@ -57,16 +58,18 @@ def _as_values(values, device) -> torch.Tensor:
 
 
 def forward_device(leaf_codes: np.ndarray, values, depth: int,
-                   staged=None, device="cpu"):
+                   staged=None, device=None):
     """Full bottom-up RAHT.
 
     Returns (acs_per_level, root_dc): acs_per_level[l] is the level's
     (coeffs (B_l, 8, C) float32, ac_mask (B_l, 8) int32) — slots with
     ac_mask != 0 hold the level's AC coefficients — and root_dc the
-    (1, C) root DC.  With ``staged`` the plan's device is used.
+    (1, C) root DC.  With ``staged`` the plan's device is used, else
+    ``device`` (default: the current CUDA device; ``NoDeviceError``
+    without one).
     """
     gathers = staged if staged is not None else stage_plan(
-        leaf_codes, depth, device)
+        leaf_codes, depth, resolve_device(device))
     if gathers:
         device = gathers[0].device
     vals = _as_values(values, device)
@@ -86,16 +89,17 @@ def forward_device(leaf_codes: np.ndarray, values, depth: int,
 
 
 def inverse_device(leaf_codes: np.ndarray, acs_per_level, root_vals,
-                   depth: int, staged=None, device="cpu"):
+                   depth: int, staged=None, device=None):
     """Top-down block un-butterflies.
 
     acs_per_level: forward_device's per-level (coeffs, ac_mask); slot 0
     of each block is overridden by the running reconstruction (closed
     loop decode passes dequantised ACs in the same layout).  Returns
-    the (N, C) leaf values.
+    the (N, C) leaf values.  The device is chosen as in
+    ``forward_device``.
     """
     gathers = staged if staged is not None else stage_plan(
-        leaf_codes, depth, device)
+        leaf_codes, depth, resolve_device(device))
     if gathers:
         device = gathers[0].device
     # upward weight pass (geometry-derived; elementwise)

@@ -8,9 +8,9 @@ device codec, and the zrow stream is the same whichever codes it.
 
 The per-frame structure (block gathers, Q15 butterfly coefficients,
 18-neighbour tables, sqrt scales, pair masks, coded-order compaction
-indices) comes from the reference's host planner ``build_fp_plan``,
-which is numpy and imported as is; ``plans_to_torch`` carries it to the
-device.
+indices) comes from the host planner ``build_fp_plan``, numpy copied
+line for line from the reference module (its lines 38-153);
+``plans_to_torch`` carries it to the device.
 
   encode: truth bottom-up (block butterflies), then top-down per
   group: prediction from reconstructed parent means -> forward network
@@ -29,16 +29,127 @@ in range).
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import List
 
 import numpy as np
 import torch
 
-from mpeg_pcc_tmc13_tpu.ops import raht_fp
-from mpeg_pcc_tmc13_tpu.ops.raht import _TOUCH_TABLE
-from mpeg_pcc_tmc13_tpu.ops.raht_fp_device import F, HALF, QA, build_fp_plan
+from ..utils.device import resolve as resolve_device
+from . import raht_fp
+from .raht import _offset_neighbor_codes, _TOUCH_TABLE
 
+F = raht_fp.F
+QA = raht_fp.QA
 QAH = 1 << (QA - 1)
+HALF = raht_fp.HALF
+
+
+# ---------------------------------------------------------------------
+# host-side plan
+# ---------------------------------------------------------------------
+
+@dataclass
+class GroupPlan:
+    mp: int
+    mc: int
+    blk_gather: np.ndarray      # (mp, 8) i32 child row per octant, -1
+    blk_present: np.ndarray     # (mp, 8) bool
+    pidx: np.ndarray            # (mc,) parent row per child
+    oct: np.ndarray             # (mc,) child octant
+    sw_c: np.ndarray            # (mc,) Q15 sqrt(child weight)
+    sw_p: np.ndarray            # (mp,) Q15 sqrt(parent weight)
+    w_p: np.ndarray             # (mp,) parent weights
+    # butterfly coefficients + pair masks per stage (z, y, x)
+    az: np.ndarray              # (mp, 4) Q15
+    bz: np.ndarray
+    vz: np.ndarray              # (mp, 4) bool: both children present
+    sz: np.ndarray              # (mp, 4) i8: single-source octant (rel)
+    ay: np.ndarray              # (mp, 2)
+    by: np.ndarray
+    vy: np.ndarray
+    sy: np.ndarray
+    ax: np.ndarray              # (mp,)
+    bx: np.ndarray
+    vx: np.ndarray
+    sx: np.ndarray
+    # coded-order compaction: flat indices into the padded (mp, k)
+    # pair grid per stage, in zrow order
+    flat_z: np.ndarray
+    flat_y: np.ndarray
+    flat_x: np.ndarray
+    # prediction
+    nbr_idx: np.ndarray         # (mp, 18) i32
+    nbr_ok: np.ndarray          # (mp, 18) bool
+    cnt_p: np.ndarray           # (mp,) 1 + present neighbours
+    en_base: np.ndarray         # (mp,) cnt >= t1 (t0 term joins later)
+
+
+def _stage_coeffs(w_cells: np.ndarray, occ: np.ndarray):
+    """Per-block pair data for one stage: w_cells (mp, 2k) weights of
+    the stage's input cells (0 = absent).  Returns merged weights
+    (mp, k) plus (a, b, valid, single_src)."""
+    w0 = w_cells[:, 0::2].astype(np.int64)
+    w1 = w_cells[:, 1::2].astype(np.int64)
+    both = (w0 > 0) & (w1 > 0)
+    ws = np.maximum(w0 + w1, 1)
+    a = raht_fp.isqrt64((w0 << 30) // ws)
+    b = raht_fp.isqrt64((w1 << 30) // ws)
+    # single-source: which input cell flows through (0/1; -1 dead)
+    ssrc = np.where(w0 > 0, 0, np.where(w1 > 0, 1, -1)).astype(np.int8)
+    return (w0 + w1), both, a, b, ssrc
+
+
+def build_fp_plan(leaf_codes: np.ndarray, depth: int,
+                  thresholds=(raht_fp._PRED_T0, raht_fp._PRED_T1)):
+    """Per-frame static structure, finest group first
+    (plans[0] merges leaves)."""
+    codes = leaf_codes.astype(np.int64)
+    w = np.ones(codes.shape[0], dtype=np.int64)
+    plans: List[GroupPlan] = []
+    for g in range(depth):
+        parent = codes >> 3
+        oct_ = (codes & 7).astype(np.int32)
+        first = np.concatenate([[True], parent[1:] != parent[:-1]]) \
+            if codes.size else np.zeros(0, bool)
+        pidx = (np.cumsum(first) - 1).astype(np.int32)
+        mp = int(pidx[-1]) + 1 if codes.size else 0
+        mc = codes.shape[0]
+        gather = np.full((mp, 8), -1, dtype=np.int32)
+        gather[pidx, oct_] = np.arange(mc, dtype=np.int32)
+        present = gather >= 0
+        blk_w = np.where(present, w[np.maximum(gather, 0)], 0)
+
+        wz, vz, az, bz, sz = _stage_coeffs(blk_w, present)
+        wy, vy, ay, by, sy = _stage_coeffs(wz, wz > 0)
+        wx, vx, ax, bx, sx = _stage_coeffs(wy, wy > 0)
+
+        parent_codes = parent[first]
+        parent_w = wx[:, 0]
+        nbr_idx, nbr_ok = _offset_neighbor_codes(
+            parent_codes, depth - 1 - g)
+        cnt_p = 1 + nbr_ok.sum(axis=1).astype(np.int64)
+
+        plans.append(GroupPlan(
+            mp=mp, mc=mc,
+            blk_gather=gather, blk_present=present,
+            pidx=pidx, oct=oct_,
+            sw_c=raht_fp.sqrt_q15(w), sw_p=raht_fp.sqrt_q15(parent_w),
+            w_p=parent_w,
+            az=az, bz=bz, vz=vz, sz=sz,
+            ay=ay, by=by, vy=vy, sy=sy,
+            ax=ax[:, 0], bx=bx[:, 0], vx=vx[:, 0], sx=sx[:, 0],
+            flat_z=np.flatnonzero(vz.reshape(-1)).astype(np.int32),
+            flat_y=np.flatnonzero(vy.reshape(-1)).astype(np.int32),
+            flat_x=np.flatnonzero(vx).astype(np.int32),
+            nbr_idx=nbr_idx.astype(np.int32), nbr_ok=nbr_ok,
+            cnt_p=cnt_p,
+            en_base=cnt_p >= thresholds[1],
+        ))
+        codes = parent_codes
+        w = parent_w
+    return plans
+
 
 _I64 = torch.int64
 
@@ -263,14 +374,15 @@ def _dec_group(recon_p, grand_p, qz, qy, qx, steps, p,
 
 class DeviceFpRaht:
     """Per-frame device codec state: the plan is uploaded once, then
-    encode()/decode() run the closed loop on ``device``."""
+    encode()/decode() run the closed loop on ``device`` (default: the
+    current CUDA device; ``NoDeviceError`` without one)."""
 
     def __init__(self, leaf_codes: np.ndarray, depth: int, steps_q16,
                  thresholds=(raht_fp._PRED_T0, raht_fp._PRED_T1),
                  weights=(raht_fp._W_SELF, raht_fp._W_FACE,
                           raht_fp._W_EDGE),
-                 device="cpu"):
-        self.device = torch.device(device)
+                 device=None):
+        self.device = resolve_device(device)
         self.depth = depth
         self.t0, self.t1 = thresholds
         self.weights = tuple(int(w) for w in weights)

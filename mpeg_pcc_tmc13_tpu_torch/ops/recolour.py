@@ -38,7 +38,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from mpeg_pcc_tmc13_tpu.models.pointcloud import PointCloud
+from ..models.pointcloud import PointCloud
 
 from ..utils import morton
 
@@ -115,7 +115,7 @@ def _knn_float(sorted_int_pos: np.ndarray, sorted_codes: np.ndarray,
     cloud candidate duplication (encoder-only, non-normative)."""
     nq = qf.shape[0]
     ns = sorted_int_pos.shape[0]
-    from mpeg_pcc_tmc13_tpu.bitstream import entropy as _ent
+    from ..bitstream import entropy as _ent
     if _ent._LIB is not None and nq and ns:
         import ctypes as _ct
         if not hasattr(_ent._LIB.knn_float, "_configured"):
@@ -226,7 +226,7 @@ def recolour(source: PointCloud, target_positions: np.ndarray,
         identical IEEE-double ops in the same order (incl. numpy's
         pairwise summation for the forward weight row), so outputs are
         bit-equal.  Covers the CTC surface (inactive attribute caps)."""
-        from mpeg_pcc_tmc13_tpu.bitstream import entropy as _ent
+        from ..bitstream import entropy as _ent
         if _ent._LIB is None or not _NATIVE_TRANSFER \
                 or np.isfinite(cap_af) \
                 or np.isfinite(cap_ab) or a.ndim > 2 \

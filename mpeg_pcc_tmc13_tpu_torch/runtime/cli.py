@@ -28,11 +28,11 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from mpeg_pcc_tmc13_tpu.bitstream import hls
-from mpeg_pcc_tmc13_tpu.bitstream.tlv import iter_tlv, write_tlv
-from mpeg_pcc_tmc13_tpu.models.pointcloud import PointCloud
-from mpeg_pcc_tmc13_tpu.utils import options as opt
-from mpeg_pcc_tmc13_tpu.utils import ply
+from ..bitstream import hls
+from ..bitstream.tlv import iter_tlv, write_tlv
+from ..models.pointcloud import PointCloud
+from ..utils import options as opt
+from ..utils import ply
 
 from .. import __version__
 from ..utils.device import NoDeviceError
@@ -619,8 +619,8 @@ def _notice_accepted(cfg: Config) -> None:
 
 def encode_sequence(cfg: Config) -> int:
     _notice_accepted(cfg)
-    from mpeg_pcc_tmc13_tpu.bitstream.tlv import PayloadType
-    from mpeg_pcc_tmc13_tpu.utils.timing import Stopwatch
+    from ..bitstream.tlv import PayloadType
+    from ..utils.timing import Stopwatch
     enc = FrameEncoder(cfg.params)
     sw = Stopwatch().start()
     with open(cfg.compressed_path, "wb") as fout:
@@ -633,7 +633,7 @@ def encode_sequence(cfg: Config) -> int:
                 sizes["geom"] += len(buf.data)
             elif buf.type == PayloadType.ATTRIBUTE_BRICK:
                 # first ue in the ABH is the aps id -> attribute label
-                from mpeg_pcc_tmc13_tpu.bitstream.hls import (
+                from ..bitstream.hls import (
                     AttributeBrickHeader)
                 abh, _ = AttributeBrickHeader.parse(buf.data)
                 label = (enc.sps.attributes[abh.sps_attr_idx].label
@@ -668,7 +668,7 @@ def encode_sequence(cfg: Config) -> int:
 
 
 def decode_sequence(cfg: Config) -> int:
-    from mpeg_pcc_tmc13_tpu.utils.timing import Stopwatch
+    from ..utils.timing import Stopwatch
     frames = []
     sw = Stopwatch().start()
     dec = FrameDecoder(frames.append,
@@ -746,8 +746,8 @@ def detect_ref_syntax(path) -> bool:
     (unobserved) ambiguous double-parse."""
     import io as _io
 
-    from mpeg_pcc_tmc13_tpu.bitstream import hls, tlv
-    from mpeg_pcc_tmc13_tpu.conformance import ref_hls
+    from ..bitstream import hls, tlv
+    from ..conformance import ref_hls
     try:
         head = open(path, "rb").read(1 << 16)
     except OSError:

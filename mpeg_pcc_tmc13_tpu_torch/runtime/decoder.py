@@ -14,10 +14,10 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from mpeg_pcc_tmc13_tpu.bitstream import entropy, hls
-from mpeg_pcc_tmc13_tpu.bitstream.tlv import PayloadBuffer, PayloadType
-from mpeg_pcc_tmc13_tpu.models import pointcloud as pc
-from mpeg_pcc_tmc13_tpu.runtime.framestore import FrameStore
+from ..bitstream import entropy, hls
+from ..bitstream.tlv import PayloadBuffer, PayloadType
+from ..models import pointcloud as pc
+from .framestore import FrameStore
 
 from ..models import attributes as attr_model
 from ..models import geometry_octree, geometry_predictive

@@ -10,10 +10,10 @@ Per slice:
   2. link: two-step fetch — the counts header, then only the
      size-bucketed used bytes.  With several slices a prefetch thread
      pulls slice s+1 while the host codes slice s,
-  3. host: the packed link is unpacked by the shared native
-     ``occ_unpack``; one native call per slice entropy-codes the stream
-     with PARENT contexts derived from the stream itself (the shared
-     ``mpeg_pcc_tmc13_tpu.bitstream.entropy`` ``occ_stream``).
+  3. host: the packed link is unpacked by the native ``occ_unpack``;
+     one native call per slice entropy-codes the stream with PARENT
+     contexts derived from the stream itself (``occ_stream`` of the
+     port's ``bitstream.entropy``).
 
 The stream is the same through either link.  The raw link is the
 default here (the reference defaults to the packed one, which its own
@@ -37,9 +37,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from mpeg_pcc_tmc13_tpu.bitstream import entropy
-
+from ..bitstream import entropy
 from ..ops import octree as ops
+from ..utils.device import resolve as resolve_device
 
 
 def _require_native():
@@ -91,7 +91,7 @@ def encode_pipelined(codes_sorted: np.ndarray, depth: int, enc, ctx,
                      packed_cap_factor: float = 1.6,
                      device_codes: Optional[list] = None,
                      stats: Optional[PipelineStats] = None,
-                     device="cpu") -> None:
+                     device=None) -> None:
     """Encode sorted unique leaf codes through the device pipeline.
 
     enc/ctx: a native ``entropy.RangeEncoder()`` and an
@@ -100,10 +100,12 @@ def encode_pipelined(codes_sorted: np.ndarray, depth: int, enc, ctx,
     the device->host bytes with the static occupancy prefix code; the
     stream is identical either way.  device_codes: optional pre-staged
     per-slice int64 tensors (then ``device`` is theirs); when None, the
-    chunks are uploaded to ``device`` here.
+    chunks are uploaded to ``device`` here (default: the current CUDA
+    device; ``NoDeviceError`` without one).
     """
     _require_native()
     if device_codes is None:
+        device = resolve_device(device)
         chunks = _split_padded(codes_sorted, num_slices)
         device_codes = [torch.as_tensor(chunks[s], device=device)
                         for s in range(num_slices)]
@@ -197,15 +199,17 @@ def encode_pipelined(codes_sorted: np.ndarray, depth: int, enc, ctx,
 def decode_pipelined(dec, ctx, depth: int, num_slices: int,
                      per_slice_points: int,
                      stats: Optional[PipelineStats] = None,
-                     device="cpu"):
+                     device=None):
     """Decode a pipelined stream back to per-slice leaf codes on
-    ``device``.
+    ``device`` (default: the current CUDA device; ``NoDeviceError``
+    without one).
 
     Returns a list of (codes (nmax,) int64 padded with INT64_MAX, count
     as a 0-d tensor) per slice, left on the device for the attribute
     stages.
     """
     _require_native()
+    device = resolve_device(device)
     nmax = per_slice_points
     # host decode uses the worst-case node bound (the stream is
     # self-delimiting); the h2d copy is padded to a half-slice bucket

@@ -28,13 +28,13 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from mpeg_pcc_tmc13_tpu.bitstream import entropy
-from mpeg_pcc_tmc13_tpu.models.attributes import AttributeContexts
-
+from ..bitstream import entropy
 from ..models.attr_raht import qp_to_step_q16
+from ..models.attributes import AttributeContexts
 from ..models.geometry_octree import OctreeContexts
 from ..ops import raht_blocks, raht_device, raht_fp_device
 from ..utils import morton
+from ..utils.device import resolve as resolve_device
 from . import device_pipeline as dp
 
 
@@ -102,14 +102,15 @@ def _sync(device):
 
 
 def device_roundtrip(uniq: np.ndarray, depth: int, colors: np.ndarray,
-                     qp: int = 22, device="cpu") -> RoundTrip:
-    """Run the slice's four stages on ``device``.
+                     qp: int = 22, device=None) -> RoundTrip:
+    """Run the slice's four stages on ``device`` (default: the current
+    CUDA device; ``NoDeviceError`` without one).
 
     uniq: (N,) sorted unique leaf Morton codes; colors: (N, C) integer
     attributes in the same order.  A CPU device runs every stage with
     the kernels' plain versions; a CUDA device launches the kernels.
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     n = uniq.size
     ncomp = colors.shape[1]
     times: Dict[str, float] = {}

@@ -6,7 +6,7 @@ so a node's child index is ``(x<<2)|(y<<1)|z``.  Codes are int64 (21 bits
 per axis, 63-bit codes).
 
 numpy arrays go through the native ``morton_encode64``/``morton_decode64``
-of the shared entropy library when it is loaded, as the reference does;
+of the port's native library when it is loaded, as the reference does;
 torch tensors (on any device) use the bit-spreading below, which is the
 same arithmetic on int64 tensors.
 """
@@ -43,7 +43,7 @@ def _compact1by2_64(x):
 
 
 def _native_lib():
-    from mpeg_pcc_tmc13_tpu.bitstream import entropy
+    from ..bitstream import entropy
     return entropy._LIB
 
 

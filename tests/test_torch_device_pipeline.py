@@ -1,6 +1,7 @@
 """Port parity: the device geometry pipeline
 (mpeg_pcc_tmc13_tpu_torch.runtime.device_pipeline) against the JAX
-package's encode_pipelined/decode_pipelined, on CPU tensors.
+package's encode_pipelined/decode_pipelined, on CPU tensors.  Each side
+codes with its own package's range coder.
 
 The stream is the native range coder's, so the payloads must be
 byte-identical; decoded leaf codes must equal the input exactly.
@@ -14,6 +15,7 @@ import bench
 from mpeg_pcc_tmc13_tpu.bitstream import entropy
 from mpeg_pcc_tmc13_tpu.models import geometry_octree as jgo
 from mpeg_pcc_tmc13_tpu.runtime import device_pipeline as jdp
+from mpeg_pcc_tmc13_tpu_torch.bitstream import entropy as tentropy
 from mpeg_pcc_tmc13_tpu_torch.models import geometry_octree as tgo
 from mpeg_pcc_tmc13_tpu_torch.ops import octree as tops
 from mpeg_pcc_tmc13_tpu_torch.runtime import device_pipeline as tdp
@@ -29,10 +31,10 @@ def _cloud(n, depth, seed=0):
 
 
 def _port_encode(uniq, depth, **kw):
-    enc = entropy.RangeEncoder()
+    enc = tentropy.RangeEncoder()
     st = tdp.PipelineStats()
     tdp.encode_pipelined(uniq, depth, enc, tgo.OctreeContexts(), stats=st,
-                         **kw)
+                         device="cpu", **kw)
     return enc.get_bytes(), st
 
 
@@ -44,9 +46,9 @@ def _jax_encode(uniq, depth, **kw):
 
 
 def _port_decode(payload, depth, num_slices, per):
-    dec = entropy.RangeDecoder(payload)
+    dec = tentropy.RangeDecoder(payload)
     outs = tdp.decode_pipelined(dec, tgo.OctreeContexts(), depth,
-                                num_slices, per)
+                                num_slices, per, device="cpu")
     return np.concatenate([nodes[:int(cnt)].numpy() for nodes, cnt in outs])
 
 
@@ -78,8 +80,9 @@ def test_decode_matches_jax():
     per = -(-uniq.size // 4)
     dec = entropy.RangeDecoder(payload)
     outs_j = jdp.decode_pipelined(dec, jgo.OctreeContexts(), depth, 4, per)
-    dec = entropy.RangeDecoder(payload)
-    outs_t = tdp.decode_pipelined(dec, tgo.OctreeContexts(), depth, 4, per)
+    dec = tentropy.RangeDecoder(payload)
+    outs_t = tdp.decode_pipelined(dec, tgo.OctreeContexts(), depth, 4, per,
+                                  device="cpu")
     for (nj, cj), (nt, ct) in zip(outs_j, outs_t):
         assert int(np.asarray(cj)) == int(ct)
         assert np.array_equal(np.asarray(nj), nt.numpy())
@@ -95,8 +98,9 @@ def test_contexts_carry_across_from_reference():
                          num_slices=1, packed_link=False)
     tctx = tgo.contexts_from_reference(jctx)
     assert tctx.occupancy_sym is not jctx.occupancy_sym
-    enc_t = entropy.RangeEncoder()
-    tdp.encode_pipelined(second, depth, enc_t, tctx, num_slices=1)
+    enc_t = tentropy.RangeEncoder()
+    tdp.encode_pipelined(second, depth, enc_t, tctx, num_slices=1,
+                         device="cpu")
     enc_j = entropy.RangeEncoder()
     jdp.encode_pipelined(second, depth, enc_j, jctx, num_slices=1,
                          packed_link=False)
@@ -155,7 +159,7 @@ def test_packed_overflow_retries_raw(cap_factor, packed_cap_factor):
 def test_missing_native_coder_raises(monkeypatch):
     """No hidden fallback to the pure-Python range coder."""
     uniq = _cloud(500, 5)
-    monkeypatch.setattr(entropy, "_LIB", None)
+    monkeypatch.setattr(tentropy, "_LIB", None)
     with pytest.raises(RuntimeError, match="native range coder"):
         tdp.encode_pipelined(uniq, 5, None, tgo.OctreeContexts())
     with pytest.raises(RuntimeError, match="native range coder"):

@@ -4,13 +4,14 @@ lod; models/attr_raht, attr_predlift, attributes, geometry_predictive,
 geometry_obuf) against the JAX package's, on the same numpy inputs made
 from a seed.
 
-Every output is integer data or bytes from the shared native range
+Every output is integer data or bytes from each package's native range
 coder, so the tolerance is 0: arrays and streams must be equal exactly.
 The attribute codecs run both their native fast path and their numpy
 path (the fast path turned off on both sides).
 """
 
 import dataclasses
+import enum
 
 import numpy as np
 import pytest
@@ -27,11 +28,15 @@ from mpeg_pcc_tmc13_tpu.ops import motion as jmotion
 from mpeg_pcc_tmc13_tpu.ops import partition as jpart
 from mpeg_pcc_tmc13_tpu.ops import processing as jproc
 from mpeg_pcc_tmc13_tpu.ops import recolour as jrec
+from mpeg_pcc_tmc13_tpu_torch.bitstream import entropy as tentropy
+from mpeg_pcc_tmc13_tpu_torch.bitstream import hls as thls
 from mpeg_pcc_tmc13_tpu_torch.models import attr_predlift as tpl
 from mpeg_pcc_tmc13_tpu_torch.models import attr_raht as traht
 from mpeg_pcc_tmc13_tpu_torch.models import attributes as tattr
 from mpeg_pcc_tmc13_tpu_torch.models import geometry_obuf as tobuf
 from mpeg_pcc_tmc13_tpu_torch.models import geometry_predictive as tpred
+from mpeg_pcc_tmc13_tpu_torch.models.pointcloud import \
+    PointCloud as TPointCloud
 from mpeg_pcc_tmc13_tpu_torch.ops import lod as tlod
 from mpeg_pcc_tmc13_tpu_torch.ops import motion as tmotion
 from mpeg_pcc_tmc13_tpu_torch.ops import partition as tpart
@@ -60,12 +65,23 @@ def _morton_cloud(n, bits, seed, ncomp=3):
     return pos, vals.astype(np.int64)
 
 
+def _mirror(obj):
+    """The port's counterpart of a reference hls object (the same field
+    values), so each package gets objects of its own."""
+    def conv(v):
+        if isinstance(v, enum.IntEnum):
+            return getattr(thls, type(v).__name__)(int(v))
+        return v
+    return getattr(thls, type(obj).__name__)(**{
+        f.name: conv(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+
+
 def _eq(a, b):
     if isinstance(a, (tuple, list)):
         assert type(a) is type(b) and len(a) == len(b)
         for x, y in zip(a, b):
             _eq(x, y)
-    elif isinstance(a, PointCloud):
+    elif isinstance(a, (PointCloud, TPointCloud)):
         for f in ("positions", "colors", "reflectances"):
             _eq(getattr(a, f), getattr(b, f))
     elif a is None:
@@ -88,8 +104,8 @@ def test_processing_matches_jax():
     pos = _pos(1500, 6, 2, dups=True)
     cols = rng.integers(0, 256, (pos.shape[0], 3))
     refl = rng.integers(0, 1024, pos.shape[0])
-    cloud = PointCloud(pos, cols, refl)
-    _eq(tproc.dedup_with_attributes(cloud), jproc.dedup_with_attributes(cloud))
+    _eq(tproc.dedup_with_attributes(TPointCloud(pos, cols, refl)),
+        jproc.dedup_with_attributes(PointCloud(pos, cols, refl)))
     _eq(tproc.rgb_to_ycgcor(cols), jproc.rgb_to_ycgcor(cols))
     ycc = jproc.rgb_to_ycgcor(cols)
     _eq(tproc.ycgcor_to_rgb(ycc, 8), jproc.ycgcor_to_rgb(ycc, 8))
@@ -126,7 +142,8 @@ def test_recolour_matches_jax():
                               skip_avg_if_identical_bwd=True)):
         tp = trec.RecolourParams(**params) if params else None
         jp = jrec.RecolourParams(**params) if params else None
-        _eq(trec.recolour(PointCloud(src, cols, refl), tgt, 1, 2, params=tp),
+        _eq(trec.recolour(TPointCloud(src, cols, refl), tgt, 1, 2,
+                          params=tp),
             jrec.recolour(PointCloud(src, cols, refl), tgt, 1, 2, params=jp))
 
 
@@ -152,9 +169,9 @@ def test_lpu_motion_matches_jax(split):
     ref = np.clip(cur + np.random.default_rng(9).integers(-2, 3, cur.shape),
                   0, (1 << depth) - 1)
     out, streams = [], []
-    for m in (tmotion, jmotion):
-        enc = entropy.RangeEncoder()
-        ctx = entropy.new_contexts(m.LPU_CTX_SIZE)
+    for m, ent in ((tmotion, tentropy), (jmotion, entropy)):
+        enc = ent.RangeEncoder()
+        ctx = ent.new_contexts(m.LPU_CTX_SIZE)
         if split:
             z0, thr = m.estimate_ground(ref)
             out.append((z0, thr))
@@ -166,8 +183,8 @@ def test_lpu_motion_matches_jax(split):
     assert streams[0] == streams[1]
     half = len(out) // 2
     _eq(out[:half], out[half:])
-    dec = entropy.RangeDecoder(streams[0])
-    ctx = entropy.new_contexts(tmotion.LPU_CTX_SIZE)
+    dec = tentropy.RangeDecoder(streams[0])
+    ctx = tentropy.new_contexts(tmotion.LPU_CTX_SIZE)
     if split:
         got = tmotion.decode_lpu_motion_split(dec, ctx, ref, lpu, depth,
                                               *out[0])
@@ -252,15 +269,18 @@ def test_attribute_codecs_match_jax(kind, native, monkeypatch):
             monkeypatch.setattr(m, "_native_fastpath_ok", lambda *a: False)
         if kind.startswith(("pred", "lift")):
             monkeypatch.setattr(entropy, "_LIB", None)
+            monkeypatch.setattr(tentropy, "_LIB", None)
     vals, pos, aps, desc, abh = _attr_case(kind)
+    taps, tdesc, tabh = _mirror(aps), _mirror(desc), _mirror(abh)
     tmod, jmod = (traht, jraht) if kind.startswith("raht") else (tpl, jpl)
     ct, cj = tattr.AttributeContexts(), jattr.AttributeContexts()
-    bt = tmod.encode(vals, pos, aps, desc, ct, abh=abh)
+    bt = tmod.encode(vals, pos, taps, tdesc, ct, abh=tabh)
     bj = jmod.encode(vals, pos, aps, desc, cj, abh=abh)
     assert bt == bj
     for f in dataclasses.fields(cj):
         _eq(getattr(ct, f.name), getattr(cj, f.name))
-    dt = tmod.decode(bj, pos, aps, desc, tattr.AttributeContexts(), abh=abh)
+    dt = tmod.decode(bj, pos, taps, tdesc, tattr.AttributeContexts(),
+                     abh=tabh)
     dj = jmod.decode(bj, pos, aps, desc, jattr.AttributeContexts(), abh=abh)
     _eq(dt, dj)
 
@@ -276,21 +296,34 @@ def test_attribute_dispatch_matches_jax(encoding):
     aps = hls.AttributeParameterSet(attr_encoding=encoding, init_qp=22,
                                     inter_prediction_enabled=True)
     ref = (pos[::3] + 1, vals[::3])
-    bt = tattr.encode(vals, pos, aps, desc, tattr.AttributeContexts(),
+    taps, tdesc = _mirror(aps), _mirror(desc)
+    bt = tattr.encode(vals, pos, taps, tdesc, tattr.AttributeContexts(),
                       ref=ref)
     bj = jattr.encode(vals, pos, aps, desc, jattr.AttributeContexts(),
                       ref=ref)
     assert bt == bj
-    _eq(tattr.decode(bj, pos, aps, desc, tattr.AttributeContexts(), ref=ref),
+    _eq(tattr.decode(bj, pos, taps, tdesc, tattr.AttributeContexts(),
+                     ref=ref),
         jattr.decode(bj, pos, aps, desc, jattr.AttributeContexts(), ref=ref))
 
 
 def test_attribute_contexts_are_shared():
-    """AttributeContexts is the reference's own class (a jax-free
-    module), so a trained reference state needs no carrying function."""
-    assert tattr.AttributeContexts is jattr.AttributeContexts
-    assert tattr.encode_raw is jattr.encode_raw
-    assert tattr.RES_CTX_SIZE == jattr.RES_CTX_SIZE
+    """The port keeps its own copy of models/attributes.py (it shared the
+    reference's before): the context memories with their sizes and
+    initial values, the layout constants and the raw codec equal the
+    reference's."""
+    assert tattr.AttributeContexts is not jattr.AttributeContexts
+    t, j = tattr.AttributeContexts(), jattr.AttributeContexts()
+    for f in dataclasses.fields(j):
+        _eq(getattr(t, f.name), getattr(j, f.name))
+    for name in ("RES_CTX_SIZE", "ZRUN_CTX_SIZE", "ZROW_CTX_SIZE",
+                 "_RES_PREFIX_MAX", "_RES_K"):
+        assert getattr(tattr, name) == getattr(jattr, name), name
+    vals, _, _, desc, _ = _attr_case("pred")
+    raw = jattr.encode_raw(vals, desc)
+    assert tattr.encode_raw(vals, _mirror(desc)) == raw
+    _eq(tattr.decode_raw(raw, vals.shape[0], _mirror(desc)),
+        jattr.decode_raw(raw, vals.shape[0], desc))
 
 
 # -- models/geometry_predictive -------------------------------------------
@@ -309,7 +342,7 @@ def test_predictive_geometry_matches_jax(case):
                   np.zeros(4, np.int64), np.full(4, 512, np.int64))
         kw = dkw = dict(angular=True, lasers=lasers,
                         origin=np.array([128, 128, 128], np.int64))
-    et, ej = entropy.RangeEncoder(), entropy.RangeEncoder()
+    et, ej = tentropy.RangeEncoder(), entropy.RangeEncoder()
     ct, cj = tpred.PredGeomContexts(), jpred.PredGeomContexts()
     tkw = dict(kw)
     if "sort_mode" in tkw:
@@ -320,7 +353,7 @@ def test_predictive_geometry_matches_jax(case):
     stream = ej.get_bytes()
     assert et.get_bytes() == stream
     _eq(ct.ctx, cj.ctx)
-    _eq(tpred.decode(len(pos), entropy.RangeDecoder(stream),
+    _eq(tpred.decode(len(pos), tentropy.RangeDecoder(stream),
                      tpred.PredGeomContexts(), **dkw),
         jpred.decode(len(pos), entropy.RangeDecoder(stream),
                      jpred.PredGeomContexts(), **dkw))
@@ -335,7 +368,7 @@ def test_predictive_contexts_carry_across():
     assert ct.ctx is not cj.ctx
     _eq(ct.ctx, cj.ctx)
     nxt = _pos(1500, 8, 17)
-    et, ej = entropy.RangeEncoder(), entropy.RangeEncoder()
+    et, ej = tentropy.RangeEncoder(), entropy.RangeEncoder()
     tpred.encode(nxt, et, ct)
     jpred.encode(nxt, ej, cj)
     assert et.get_bytes() == ej.get_bytes()
@@ -350,9 +383,10 @@ def test_obuf_decode_matches_jax(case):
     axis_bits = (8, 8, 8)
     ref = np.unique(pos[::2] ^ 1, axis=0) if case == "inter" else None
     payload = jobuf.encode(pos, 8, axis_bits, gps, ref_local=ref)
-    assert tobuf.encode is jobuf.encode
+    assert tobuf.encode(pos, 8, axis_bits, _mirror(gps),
+                        ref_local=ref) == payload
     kw = dict(ref_local=ref)
     if case == "scalable":
         kw = dict(skip_layers=2)
-    _eq(tobuf.decode(payload, len(pos), 8, axis_bits, gps, **kw),
+    _eq(tobuf.decode(payload, len(pos), 8, axis_bits, _mirror(gps), **kw),
         jobuf.decode(payload, len(pos), 8, axis_bits, gps, **kw))

@@ -20,6 +20,7 @@ from mpeg_pcc_tmc13_tpu.bitstream import entropy
 from mpeg_pcc_tmc13_tpu.models import geometry_octree as jgo
 from mpeg_pcc_tmc13_tpu.ops import angular as jang
 from mpeg_pcc_tmc13_tpu.ops import motion as jmotion
+from mpeg_pcc_tmc13_tpu_torch.bitstream import entropy as tentropy
 from mpeg_pcc_tmc13_tpu_torch.models import geometry_octree as tgo
 from mpeg_pcc_tmc13_tpu_torch.ops import angular as tang
 from mpeg_pcc_tmc13_tpu_torch.ops import motion as tmotion
@@ -75,14 +76,14 @@ def _both(pos, depth, enc_kw, dec_kw=None, num_points=None):
     streams, decoded positions and coding orders must agree.  Returns
     (stream, positions decoded by the port)."""
     dec_kw = enc_kw if dec_kw is None else dec_kw
-    ej, et = entropy.RangeEncoder(), entropy.RangeEncoder()
+    ej, et = entropy.RangeEncoder(), tentropy.RangeEncoder()
     oj = jgo.encode(pos, depth, ej, jgo.OctreeContexts(), **enc_kw)
     ot = tgo.encode(pos, depth, et, tgo.OctreeContexts(), device="cpu",
                     **enc_kw)
     sj, st = ej.get_bytes(), et.get_bytes()
     assert st == sj
     num = len(pos) if num_points is None else num_points
-    dt = tgo.decode(num, depth, entropy.RangeDecoder(st),
+    dt = tgo.decode(num, depth, tentropy.RangeDecoder(st),
                     tgo.OctreeContexts(), **dec_kw)
     dj = jgo.decode(num, depth, entropy.RangeDecoder(st),
                     jgo.OctreeContexts(), **dec_kw)
@@ -102,10 +103,10 @@ def test_engines_match_jax(engine, mode, bytewise):
     _, out = _both(pos, depth, kw)
     assert np.array_equal(morton.encode(out), np.unique(morton.encode(pos)))
     # the device engine's stream is the numpy spec's
-    et = entropy.RangeEncoder()
+    et = tentropy.RangeEncoder()
     tgo.encode(pos, depth, et, tgo.OctreeContexts(), engine="numpy",
                ctx_mode=mode, bytewise=bytewise)
-    ed = entropy.RangeEncoder()
+    ed = tentropy.RangeEncoder()
     tgo.encode(pos, depth, ed, tgo.OctreeContexts(), engine=engine,
                ctx_mode=mode, bytewise=bytewise, device="cpu")
     assert ed.get_bytes() == et.get_bytes()
@@ -157,15 +158,15 @@ def test_coding_tools_match_jax(tool, mode):
         info, org = enc_kw["angular"]
         jkw = dict(enc_kw, angular=(jang.laser_info(
             info.theta, info.z, [300] * info.theta.size), org))
-        ej, et = entropy.RangeEncoder(), entropy.RangeEncoder()
+        ej, et = entropy.RangeEncoder(), tentropy.RangeEncoder()
         jgo.encode(pos, depth, ej, jgo.OctreeContexts(), **jkw)
         tgo.encode(pos, depth, et, tgo.OctreeContexts(), **enc_kw)
         assert et.get_bytes() == ej.get_bytes()
-        plain = entropy.RangeEncoder()    # the laser contexts are in use
+        plain = tentropy.RangeEncoder()    # the laser contexts are in use
         tgo.encode(pos, depth, plain, tgo.OctreeContexts(),
                    **dict(enc_kw, angular=None))
         assert len(et.get_bytes()) < len(plain.get_bytes())
-        out = tgo.decode(len(pos), depth, entropy.RangeDecoder(
+        out = tgo.decode(len(pos), depth, tentropy.RangeDecoder(
             et.get_bytes()), tgo.OctreeContexts(), **enc_kw)
         assert np.array_equal(out, morton.decode(np.unique(
             morton.encode(pos))))
@@ -204,7 +205,7 @@ def test_inter_contexts_match_jax():
 def test_empty_and_depth0():
     for depth, pos in ((5, np.zeros((0, 3), np.int64)),
                        (0, np.zeros((3, 3), np.int64))):
-        et = entropy.RangeEncoder()
+        et = tentropy.RangeEncoder()
         tgo.encode(pos, depth, et, tgo.OctreeContexts())
         ej = entropy.RangeEncoder()
         jgo.encode(pos, depth, ej, jgo.OctreeContexts())
@@ -219,9 +220,9 @@ def test_device_engine_has_no_host_default():
     raises where there is none; the host engines need no device."""
     pos = _random(100, 5, 1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        tgo.encode(pos, 5, entropy.RangeEncoder(), tgo.OctreeContexts(),
+        tgo.encode(pos, 5, tentropy.RangeEncoder(), tgo.OctreeContexts(),
                    engine="device")
-    tgo.encode(pos, 5, entropy.RangeEncoder(), tgo.OctreeContexts(),
+    tgo.encode(pos, 5, tentropy.RangeEncoder(), tgo.OctreeContexts(),
                engine="numpy")
 
 
@@ -257,7 +258,7 @@ def test_contexts_fields_copy_and_carry_across():
         assert getattr(cp, f) is not getattr(carried, f)
     # the carried state codes the next frame exactly as the reference
     nxt = _random(1500, depth, 3)
-    et, ej = entropy.RangeEncoder(), entropy.RangeEncoder()
+    et, ej = tentropy.RangeEncoder(), entropy.RangeEncoder()
     tgo.encode(nxt, depth, et, carried, planar=True, engine="numpy")
     jgo.encode(nxt, depth, ej, j, planar=True, engine="numpy")
     assert et.get_bytes() == ej.get_bytes()

@@ -229,7 +229,7 @@ def _cloud(n, depth, c=3, seed=0):
 @pytest.mark.parametrize("n,depth", [(40, 2), (500, 3), (3000, 4)])
 def test_forward_device_matches_jax(n, depth):
     codes, vals = _cloud(n, depth, seed=n)
-    acs_t, root_t = trd.forward_device(codes, vals, depth)
+    acs_t, root_t = trd.forward_device(codes, vals, depth, device="cpu")
     acs_j, root_j = jrd.forward_device(codes, vals, depth, interpret=True)
     # tests/test_pallas_raht.py:55-60 tolerance
     np.testing.assert_allclose(root_t.numpy(), np.asarray(root_j), atol=1e-2)
@@ -241,7 +241,7 @@ def test_forward_device_matches_jax(n, depth):
 
 def test_forward_device_preserves_energy():
     codes, vals = _cloud(800, 3, c=1, seed=9)
-    acs, root = trd.forward_device(codes, vals, 3)
+    acs, root = trd.forward_device(codes, vals, 3, device="cpu")
     total = float(np.sum(root.numpy().astype(np.float64) ** 2))
     for coeffs, mask in acs:
         sel = mask.numpy() > 0
@@ -271,3 +271,32 @@ def test_build_block_plan_matches_reference():
                     jrd.build_block_plan(codes, 5)):
         assert np.array_equal(a["gather"], b["gather"])
         assert np.array_equal(a["parent_codes"], b["parent_codes"])
+
+
+def _flip_last(out, which):
+    """``out`` with one word of output ``which`` of the last block changed
+    by one unit in the last place."""
+    out = tuple(t.clone() for t in out)
+    t = out[which].view(-1)
+    t.view(torch.int32)[-1] += 1
+    return out
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_level_check_holds_every_output(which):
+    """chip_smoke.py's check of B1/B2 at the float lane's levels: the
+    wrappers pass at every level, and one word off in the coefficients,
+    the weights or the mask of one level fails it."""
+    import chip_smoke
+    codes, vals = _cloud(3000, 4, seed=11)
+    fwd, inv = chip_smoke._level_inputs(codes, vals, 4, torch.device("cpu"))
+    assert len(fwd) == len(inv) == 4
+    cpu = torch.device("cpu")
+    assert chip_smoke._level_check(
+        "fwd_blocks", rb.fwd_blocks, rb.fwd_blocks_ref, fwd, cpu) == 0.0
+    assert chip_smoke._level_check(
+        "inv_blocks", rb.inv_blocks, rb.inv_blocks_ref, inv, cpu) == 0.0
+    with pytest.raises(AssertionError, match="fwd_blocks differs"):
+        chip_smoke._level_check(
+            "fwd_blocks", lambda v, w: _flip_last(rb.fwd_blocks(v, w), which),
+            rb.fwd_blocks_ref, fwd, cpu)

@@ -46,7 +46,7 @@ def _spec(codes, vals, depth, steps):
 
 
 def _port(codes, vals, depth, steps, ref_qs):
-    dv = tfp.DeviceFpRaht(codes, depth, steps)
+    dv = tfp.DeviceFpRaht(codes, depth, steps, device="cpu")
     qs = []
     dv.encode(vals, qs.append)
     it = iter(ref_qs)

@@ -245,23 +245,29 @@ def test_kernel_wrappers_raise_off_cuda():
         lanes.decode_tiles(i32, i32, i32, st, st[:1], i32, i32, 10, 0, 1)
 
 
+def _recorded_decode(K=64):
+    """chip_smoke.py's record of a small decode: (uniq, counts, words,
+    the analysis rows, the run it times)."""
+    uniq = _uniq(3000, 8, 9)
+    leaf = torch.as_tensor(_leaf(uniq))
+    buf, _ = tr.encode_device(leaf, 8, leaf.shape[0], K)
+    counts, states, words = tr.parse_payload(buf.numpy(), 8, K)
+    occ2, ctx2, _ = tr._analysis(leaf, 8, leaf.shape[0])
+    windows = chip_smoke._tile_windows(occ2, ctx2, counts.tolist(), K)
+    run = SimpleNamespace(
+        windows=windows, states0=torch.as_tensor(states.astype(np.int64)),
+        words=torch.as_tensor(np.concatenate([words, np.zeros(64, np.int32)])),
+        nmax_p=(-(-leaf.shape[0] // K) + 1) * K, n_ctx=lanes.N_CTX)
+    return uniq, counts, words, (occ2, ctx2), run
+
+
 def test_record_replays_the_decode():
     """The decode windows that chip_smoke.py records from the encoder's
     analysis (to time decode_tiles alone), replayed through decode_tiles
     from the initial state, reproduce the decode: every word consumed,
     every symbol counted, every level's occupancy decoded."""
-    uniq = _uniq(3000, 8, 9)
-    leaf = torch.as_tensor(_leaf(uniq))
-    K = 64
-    buf, _ = tr.encode_device(leaf, 8, leaf.shape[0], K)
-    counts, states, words = tr.parse_payload(buf.numpy(), 8, K)
-    occ2, ctx2, _ = tr._analysis(leaf, 8, leaf.shape[0])
-    windows = chip_smoke._tile_windows(occ2, ctx2, counts.tolist(), K)
-    assert len(windows) == len(tr._windows(counts, K))
-    run = SimpleNamespace(
-        windows=windows, states0=torch.as_tensor(states.astype(np.int64)),
-        words=torch.as_tensor(np.concatenate([words, np.zeros(64, np.int32)])),
-        nmax_p=(-(-leaf.shape[0] // K) + 1) * K, n_ctx=lanes.N_CTX)
+    uniq, counts, words, _, run = _recorded_decode()
+    assert len(run.windows) == len(tr._windows(counts, 64))
     st, cur, hist, syms = chip_smoke._replay_tiles(
         lanes.decode_tiles, run, chip_smoke._new_tile_state(run))
     assert int(cur) == words.size          # every word consumed
@@ -269,6 +275,27 @@ def test_record_replays_the_decode():
     levels = tops.build_levels_np(uniq, 8, tops.CTX_MODE_PARENT)
     for l, lv in enumerate(levels):
         assert np.array_equal(syms[l][:counts[l]].numpy(), lv["occ"])
+
+
+def test_tiles_bytes_counts_what_the_data_needs():
+    """The byte bound chip_smoke.py gives decode_tiles counts this run's
+    data: per window 8 B for each decoded symbol (context id in, symbol
+    out), 4 B for each distinct table entry c[s-1], c[s] and 8 B for each
+    distinct histogram bin it touches; the words once; the states in and
+    out.  Not the whole 2048 x 256 table and histogram per window."""
+    _, counts, words, (occ2, ctx2), run = _recorded_decode()
+    _, _, _, syms = chip_smoke._replay_tiles(
+        lanes.decode_tiles, run, chip_smoke._new_tile_state(run))
+    K = 64
+    want = run.words.numel() * 4 + 2 * run.states0.numel() * 8
+    for l, t0, nt, _ in tr._windows(counts, K):
+        lo, hi = t0 * K, min(int(counts[l]), (t0 + nt) * K)
+        bins = {int(c) * 256 + int(o) for c, o in
+                zip(ctx2[l, lo:hi].tolist(), occ2[l, lo:hi].tolist())}
+        entries = bins | {b - 1 for b in bins}
+        want += (hi - lo) * 8 + len(entries) * 4 + len(bins) * 8
+    assert chip_smoke._tiles_bytes(run, syms) == want
+    assert want < len(run.windows) * lanes.N_CTX * 256 * 4
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),

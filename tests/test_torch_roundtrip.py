@@ -39,7 +39,8 @@ QP = 22
 def slice_run():
     uniq = rt.sorted_unique_codes(rt.make_surface_cloud(20_000, DEPTH))
     colors = rt._colors_for(uniq, DEPTH)
-    return uniq, colors, rt.device_roundtrip(uniq, DEPTH, colors, qp=QP)
+    return uniq, colors, rt.device_roundtrip(uniq, DEPTH, colors, qp=QP,
+                                             device="cpu")
 
 
 def test_cloud_and_colors_match_bench():
@@ -95,7 +96,7 @@ def test_float_lane_matches_jax_interpret(slice_run):
     tests/test_pallas_raht.py:55-60)."""
     uniq, _, _ = slice_run
     vals = np.random.default_rng(5).normal(0, 50, (uniq.size, 3))
-    acs_t, root_t = trd.forward_device(uniq, vals, DEPTH)
+    acs_t, root_t = trd.forward_device(uniq, vals, DEPTH, device="cpu")
     acs_j, root_j = jrd.forward_device(uniq, vals, DEPTH, interpret=True)
     np.testing.assert_allclose(root_t.numpy(), np.asarray(root_j), atol=1e-2)
     for (ct, mt), (cj, mj) in zip(acs_t, acs_j):
@@ -104,15 +105,19 @@ def test_float_lane_matches_jax_interpret(slice_run):
 
 
 _JAX_BLOCKED = textwrap.dedent("""
+    import json
+    import os
     import sys
 
-    class _NoJax:
+    class _NoReference:
         def find_spec(self, name, path=None, target=None):
-            if name == "jax" or name.startswith(("jax.", "jaxlib")):
-                raise ModuleNotFoundError("jax is blocked: " + name)
+            if (name in ("jax", "mpeg_pcc_tmc13_tpu")
+                    or name.startswith(("jax.", "jaxlib",
+                                        "mpeg_pcc_tmc13_tpu."))):
+                raise ModuleNotFoundError("blocked: " + name)
             return None
 
-    sys.meta_path.insert(0, _NoJax())
+    sys.meta_path.insert(0, _NoReference())
     import numpy as np
     import torch
     torch.set_num_threads(2)
@@ -136,6 +141,7 @@ _JAX_BLOCKED = textwrap.dedent("""
     from mpeg_pcc_tmc13_tpu_torch.models import geometry_rans as gr
     from mpeg_pcc_tmc13_tpu_torch.ops import octree
     from mpeg_pcc_tmc13_tpu_torch.utils import morton
+    assert host.native_available()
     pos = morton.decode(uniq)
     out = gr.decode(gr.encode(pos, 6, device="cpu"), uniq.size, 6,
                     device="cpu")
@@ -148,39 +154,57 @@ _JAX_BLOCKED = textwrap.dedent("""
         streams.append(enc.get_bytes())
     assert streams[0] == streams[1]
 
-    # the port's CLI: a rANS + RAHT colour encode and its decode
-    import os
-    import tempfile
-    from mpeg_pcc_tmc13_tpu.utils import ply
+    # the port's CLI on the flag sets of argv[3], frames from argv[1],
+    # streams and decoded PLYs into argv[2]
     from mpeg_pcc_tmc13_tpu_torch.runtime import cli
-    cols = (pos * 37 % 256).astype(np.uint16)
-    flags = ["--geomEngine=rans", "--device=cpu"]
-    with tempfile.TemporaryDirectory() as d:
-        ply.write(ply.PlyCloud(positions=pos.astype(np.float64),
-                               colors=cols),
-                  os.path.join(d, "in.ply"), position_is_float=False)
-        assert cli.main(["--mode=0", "--uncompressedDataPath=" + d
-                         + "/in.ply", "--compressedStreamPath=" + d
-                         + "/s.bin", "--attribute=color", *flags]) == 0
-        assert cli.main(["--mode=1", "--compressedStreamPath=" + d
-                         + "/s.bin", "--reconstructedDataPath=" + d
-                         + "/out.ply", *flags]) == 0
-        rec = ply.read(os.path.join(d, "out.ply"))
-    assert np.array_equal(morton.encode(rec.positions.astype(np.int64)),
-                          uniq)
-    assert not any(m == "jax" or m.startswith(("jax.", "jaxlib"))
+    src, out_dir = sys.argv[1], sys.argv[2]
+    for name, flags in json.loads(sys.argv[3]).items():
+        flags = flags + ["--device=cpu"]
+        out_bin = os.path.join(out_dir, name + ".bin")
+        assert cli.main(["--mode=0", "--uncompressedDataPath=" + src,
+                         "--compressedStreamPath=" + out_bin, *flags]) == 0
+        assert cli.main(["--mode=1", "--compressedStreamPath=" + out_bin,
+                         "--reconstructedDataPath=" + os.path.join(
+                             out_dir, name + "_%04d.ply"), *flags]) == 0
+    assert not any(m.split(".")[0] in ("jax", "jaxlib", "mpeg_pcc_tmc13_tpu")
                    for m in sys.modules)
-    print("NO_JAX_OK", uniq.size)
+    print("NO_REFERENCE_OK", uniq.size)
 """)
 
+# the flag sets of tests/test_torch_cli.py run with the reference blocked
+_BLOCKED_CLI_SETS = ("raht", "aps_knobs_pred_lod", "obuf", "predictive",
+                     "rans", "inter_two_frames")
 
-def test_port_runs_with_jax_blocked():
+
+def test_port_runs_with_jax_blocked(tmp_path):
+    """With jax and the JAX package blocked, the port's round trip, its
+    geometry engines and its CLI run; the CLI's streams and decoded PLYs
+    are the JAX CLI's, byte for byte."""
+    from test_torch_cli import FLAG_SETS, _encode_decode, _write_frame
+
+    from mpeg_pcc_tmc13_tpu.runtime import cli as jcli
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    _write_frame(frames / "f0000.ply", 5)
+    _write_frame(frames / "f0001.ply", 5, shift=3)
+    sets = {k: FLAG_SETS[k] for k in _BLOCKED_CLI_SETS}
+    out = tmp_path / "port"
+    out.mkdir()
     env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-c", _JAX_BLOCKED], cwd=REPO,
-                         env=env, capture_output=True, text=True,
-                         timeout=300)
+    res = subprocess.run([sys.executable, "-c", _JAX_BLOCKED,
+                          str(frames / "f%04d.ply"), str(out),
+                          json.dumps(sets)], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert "NO_JAX_OK" in res.stdout
+    assert "NO_REFERENCE_OK" in res.stdout
+    for name, flags in sets.items():
+        stream, rec = _encode_decode(jcli, frames / "f%04d.ply", "j_" + name,
+                                     flags, tmp_path)
+        assert (out / f"{name}.bin").read_bytes() == stream, name
+        nframes = 2 if "--frameCount=2" in flags else 1
+        for i in range(nframes):
+            assert (out / f"{name}_{i:04d}.ply").read_bytes() == (
+                tmp_path / (rec.name % i)).read_bytes(), (name, i)
 
 
 def test_chip_smoke_imports_only_the_port():

@@ -1,0 +1,240 @@
+"""The port stands alone: it imports nothing of jax or of the JAX package,
+its native calls go to its own library (built from its own ``native/``),
+its host range coder matches the reference's bit for bit, and its entry
+points run on the card unless the caller asks for another device.
+"""
+
+import ast
+import ctypes
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from mpeg_pcc_tmc13_tpu.bitstream import entropy as jentropy
+from mpeg_pcc_tmc13_tpu.models import geometry_octree as jgo
+from mpeg_pcc_tmc13_tpu_torch.bitstream import entropy as tentropy
+from mpeg_pcc_tmc13_tpu_torch.models import geometry_octree as tgo
+from mpeg_pcc_tmc13_tpu_torch.ops import octree as tops
+from mpeg_pcc_tmc13_tpu_torch.ops import raht_device, raht_fp_device
+from mpeg_pcc_tmc13_tpu_torch.runtime import device_pipeline as dp
+from mpeg_pcc_tmc13_tpu_torch.runtime import roundtrip as rt
+from mpeg_pcc_tmc13_tpu_torch.utils import morton
+from mpeg_pcc_tmc13_tpu_torch.utils.device import NoDeviceError
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "mpeg_pcc_tmc13_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "mpeg_pcc_tmc13_tpu")
+
+
+def _imports(path):
+    """Every module an import statement of ``path`` names, at any depth
+    (imports inside functions included), relative ones resolved."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    rel = os.path.relpath(path, REPO)[:-3].split(os.sep)
+    if rel[-1] == "__init__":
+        rel = rel[:-1]
+    mods = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                base = rel[:len(rel) - node.level + (
+                    path.endswith("__init__.py"))]
+                mods.append(".".join(base + ([node.module]
+                                             if node.module else [])))
+            else:
+                mods.append(node.module)
+    return mods
+
+
+def _sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_no_module_imports_jax_or_the_reference():
+    assert len(_sources()) > 40
+    bad = {}
+    for path in _sources():
+        hits = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+        if hits:
+            bad[os.path.relpath(path, REPO)] = hits
+    assert not bad, bad
+    # the scan resolves relative imports into the port's own package
+    mods = _imports(os.path.join(PKG, "host.py"))
+    assert "mpeg_pcc_tmc13_tpu_torch.bitstream.entropy" in mods
+
+
+def test_native_library_is_the_ports_own():
+    """Loaded, from the port's build directory, built from its own
+    sources: not the reference package's library."""
+    assert tentropy.native_available()
+    build = os.path.join(REPO, "build", "tmc13_native")
+    assert os.path.dirname(tentropy.LIB_PATH) == build
+    assert tentropy.LIB_PATH == tentropy._library_path()
+    assert tentropy._LIB._name == tentropy.LIB_PATH
+    assert os.path.realpath(tentropy.LIB_PATH) != os.path.realpath(
+        jentropy._SO_PATH)
+    assert tentropy._NATIVE_DIR == os.path.join(PKG, "native")
+    for src in tentropy._SOURCES:
+        assert os.path.exists(os.path.join(tentropy._NATIVE_DIR, src))
+    assert "-march=native" not in tentropy.CXXFLAGS
+    assert "-ffp-contract=off" in tentropy.CXXFLAGS
+
+
+_BUILD_ONE = textwrap.dedent("""
+    import ctypes, sys
+    from mpeg_pcc_tmc13_tpu_torch.bitstream import entropy as e
+    e._BUILD_DIR = sys.argv[1]
+    e._SOURCES = ("lod.cc",)
+    so = e._library_path()
+    secs = e._build(so)
+    ctypes.CDLL(so)
+    print(so, secs)
+""")
+
+
+def test_native_build_is_locked(tmp_path):
+    """Processes that build together build once: one compiles, the
+    others wait on the lock and load the finished library; no temporary
+    file is left behind.  (One small source keeps the test fast.)"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = [subprocess.Popen([sys.executable, "-c", _BUILD_ONE,
+                               str(tmp_path)], cwd=REPO, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(4)]
+    outs = []
+    for p in procs:
+        out, err = p.communicate(timeout=240)
+        assert p.returncode == 0, err[-2000:]
+        outs.append(out.split())
+    assert len({so for so, _ in outs}) == 1
+    assert sorted(float(s) > 0 for _, s in outs) == [False] * 3 + [True]
+    left = sorted(os.listdir(tmp_path))
+    assert left == sorted(["build.lock", os.path.basename(outs[0][0])])
+
+
+# -- the two range coders, bit for bit ------------------------------------
+
+def _occ_bytes(seed):
+    rng = np.random.default_rng(seed)
+    codes = np.unique(morton.encode(rng.integers(0, 64, (900, 3))))
+    return np.concatenate([lv["occ"] for lv in tops.build_levels_np(
+        codes, 6, tops.CTX_MODE_PARENT)]).astype(np.uint8)
+
+
+def _coder_case(kind, ent, rng):
+    """(encode(enc), decode(dec) -> values, the values) of one coder
+    method on seeded inputs, with contexts from package ``ent``."""
+    if kind == "bits":
+        ids = rng.integers(0, 16, 3000).astype(np.int32)
+        bits = (rng.random(3000) < 0.2).astype(np.uint8)
+        return (lambda e: e.bits(ent.new_contexts(16), ids, bits),
+                lambda d: d.bits(ent.new_contexts(16), ids), bits)
+    if kind == "bypass":
+        nbits = rng.integers(1, 17, 800).astype(np.int32)
+        vals = (rng.integers(0, 1 << 16, 800)
+                & ((1 << nbits) - 1)).astype(np.uint32)
+        return (lambda e: e.bypass(vals, nbits),
+                lambda d: d.bypass(nbits), vals)
+    if kind == "ueg":
+        bases = rng.integers(0, 3, 800).astype(np.int32) * 10
+        vals = rng.integers(0, 500, 800).astype(np.uint32)
+        return (lambda e: e.ueg(ent.new_contexts(32), bases, vals, 8, 2),
+                lambda d: d.ueg(ent.new_contexts(32), bases, 8, 2), vals)
+    if kind == "occ_stream":
+        occ = _occ_bytes(int(rng.integers(1 << 30)))
+        ctx = (tgo if ent is tentropy else jgo).OctreeContexts
+        return (lambda e: e.occ_stream(ctx().occupancy_sym, occ, 6),
+                lambda d: d.occ_stream(ctx().occupancy_sym, occ.size + 64,
+                                       6)[:occ.size], occ)
+    if kind == "zrow":
+        rows = rng.integers(-30, 31, (1500, 3)).astype(np.int32)
+        rows[rng.random(1500) < 0.7] = 0
+        return (lambda e: e.zrow_residuals(ent.new_contexts(31), rows),
+                lambda d: d.zrow_residuals(ent.new_contexts(31), 1500, 3),
+                rows)
+    res = (rng.standard_normal(2000) * 5).astype(np.int32)
+    return (lambda e: e.residuals(ent.new_contexts(32), res, 12, 1),
+            lambda d: d.residuals(ent.new_contexts(32), res.size, 12, 1),
+            res)
+
+
+@pytest.mark.parametrize("kind", ["bits", "bypass", "ueg", "occ_stream",
+                                  "zrow", "residuals"])
+def test_range_coders_match_reference(kind):
+    """The port's coder writes the reference's bytes from the same
+    seeded inputs, and each decodes the other's stream to them."""
+    streams, values = [], []
+    for ent in (tentropy, jentropy):
+        enc_fn, _, vals = _coder_case(kind, ent, np.random.default_rng(7))
+        enc = ent.RangeEncoder()
+        enc_fn(enc)
+        streams.append(enc.get_bytes())
+        values.append(vals)
+    assert np.array_equal(values[0], values[1])
+    assert len(streams[0]) > 0 and streams[0] == streams[1]
+    for ent, stream in ((tentropy, streams[1]), (jentropy, streams[0])):
+        _, dec_fn, vals = _coder_case(kind, ent, np.random.default_rng(7))
+        assert np.array_equal(np.asarray(dec_fn(ent.RangeDecoder(stream))),
+                              vals)
+
+
+# -- the card by default ---------------------------------------------------
+
+def _entry_points():
+    uniq = rt.sorted_unique_codes(rt.make_surface_cloud(400, 4))
+    colors = rt._colors_for(uniq, 4)
+    vals = colors.astype(np.float32)
+    acs, root = raht_device.forward_device(uniq, vals, 4, device="cpu")
+    enc = tentropy.RangeEncoder()
+    dp.encode_pipelined(uniq, 4, enc, tgo.OctreeContexts(), num_slices=1,
+                        device="cpu")
+    stream = enc.get_bytes()
+    return {
+        "device_roundtrip": lambda: rt.device_roundtrip(uniq, 4, colors),
+        "encode_pipelined": lambda: dp.encode_pipelined(
+            uniq, 4, tentropy.RangeEncoder(), tgo.OctreeContexts(),
+            num_slices=1),
+        "decode_pipelined": lambda: dp.decode_pipelined(
+            tentropy.RangeDecoder(stream), tgo.OctreeContexts(), 4, 1,
+            uniq.size),
+        "forward_device": lambda: raht_device.forward_device(uniq, vals, 4),
+        "inverse_device": lambda: raht_device.inverse_device(
+            uniq, acs, root, 4),
+        "DeviceFpRaht": lambda: raht_fp_device.DeviceFpRaht(
+            uniq, 4, [1 << 16] * 3),
+    }
+
+
+@pytest.mark.parametrize("name", ["device_roundtrip", "encode_pipelined",
+                                  "decode_pipelined", "forward_device",
+                                  "inverse_device", "DeviceFpRaht"])
+def test_entry_point_needs_a_device(name, monkeypatch):
+    """Called without ``device`` an entry point takes the current CUDA
+    device; with none present it raises instead of running on the host."""
+    call = _entry_points()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(NoDeviceError):
+        call()
+
+
+def test_library_symbols_are_bound_by_name():
+    """Every entry point the port binds is defined by its own library;
+    none of the reference-syntax units left out of it is."""
+    lib = ctypes.CDLL(tentropy.LIB_PATH)
+    for sym in ("rce_new", "oct_encode", "raht_encode_fp", "knn_float",
+                "lod_assign_dist2", "obufls_encode_octree",
+                "tmc13ref_decode_octree_intra", "tmc13_div_approx"):
+        assert hasattr(lib, sym), sym
+    for sym in ("tmc13ref_decode_raht_attr", "tsgeom_open", "tsref_open"):
+        assert not hasattr(lib, sym), sym
