@@ -13,6 +13,8 @@ Drives the port's main path (``mpeg_pcc_tmc13_tpu_torch``) once on
       from ``csrc/`` with nvcc,
   (c) each block kernel against its plain PyTorch version on the card,
       bit for bit, at ragged batch sizes and all 256 occupancy patterns,
+      for 1 and 3 channels and, through the wrappers' split into runs of
+      3 and 1, for 2 and 5; the float RAHT lane at 2 channels on the card,
   (d) the device round trip at the bench size (1M-point surface cloud,
       depth 11, qp 22): geometry encode/decode, fixed-point RAHT colour
       encode/decode, the float RAHT lane, each checked against its
@@ -24,9 +26,10 @@ Drives the port's main path (``mpeg_pcc_tmc13_tpu_torch``) once on
       launch per level), its payload held to the plain versions on the
       card, each kernel held to its plain version at the shapes of this
       run (the decoder at every level, from the plain decode's state)
-      and on context rows of more than 2^23 counts, its size beside
-      (d)'s range-coded stream, and the same checks on two small slices
-      (K = 64 and 256),
+      and on context rows of more than 2^23 counts, the emission also at
+      a lane count that is no multiple of its block's lanes and at fewer
+      steps than one of its slabs, its size beside (d)'s range-coded
+      stream, and the same checks on two small slices (K = 64 and 256),
   (h) a depth-21 rANS round trip, its analysis held to the numpy level
       builder,
   (i) ``models.geometry_octree.encode(engine="device")`` at the bench
@@ -45,8 +48,12 @@ Drives the port's main path (``mpeg_pcc_tmc13_tpu_torch``) once on
       the pass through the wrappers (CUDA events), its device time (the
       pass replayed as a CUDA graph), the largest level alone for the
       block kernels, each kernel's bound and, for the rANS kernels, the
-      serial chain that floors them; plus the rANS encode/decode wall
-      times, first and warm.
+      serial chain that floors them (for the emission as a time: its
+      steps times the step's dependent latency, measured by running the
+      chain alone); plus the rANS encode/decode wall times, first and
+      warm, and one warm rANS encode and decode under ``torch.profiler``:
+      the device operations that took most time, the device-busy share
+      of the wall, and the host calls that wait for the device.
 
 Then one JSON line with the kernels and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -75,6 +82,9 @@ BENCH_QP = 22
 DEEP_POINTS = 200_000
 DEEP_DEPTH = 21
 CHECK_BLOCKS = (1, 3, 31, 300_001)   # ragged against warps and tiles
+SPLIT_CHANNELS = (2, 5)         # channel counts that go in runs of 3 and 1
+LANE_INVERSE_MAX = 2e-3         # float32 lane, forward then inverse
+EMIT_RAGGED_LANES = 1000        # no multiple of the emission's 32 lanes
 PARSEVAL_MAX = 1e-3
 TIMING_REPS = 10
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA's data sheet
@@ -135,14 +145,18 @@ def _sync(device):
 def phase_c(device):
     """Each block kernel against its plain version on the same CUDA
     inputs, bit for bit, at ragged batch sizes (a partial warp and a
-    partial thread block), for reflectance and colour."""
+    partial thread block), for reflectance and colour, and for 2 and 5
+    channels, which the wrappers send through the same kernels in runs
+    of 3 and 1 (one launch a run)."""
     import torch
 
     from mpeg_pcc_tmc13_tpu_torch.ops import raht_blocks as rb
     errs = {"fwd_blocks": 0.0, "inv_blocks": 0.0}
     shapes = [(b, c) for c in (1, 3) for b in CHECK_BLOCKS]
+    shapes += [(b, c) for c in SPLIT_CHANNELS for b in CHECK_BLOCKS[-2:]]
     for nblocks, nchan in shapes:
         v, w = _block_inputs(nblocks, nchan, nblocks + nchan, device)
+        rb.reset_launch_counts()
         coeffs, wout, mask = rb.fwd_blocks(v, w)
         rc, rw, rm = rb.fwd_blocks_ref(v, w)
         _sync(device)
@@ -155,16 +169,61 @@ def phase_c(device):
         rback = rb.inv_blocks_ref(rc, w)
         _sync(device)
         e_inv = float((back - rback).abs().max())
-        _check(e_fwd == 0.0 and e_inv == 0.0,
+        _check(e_fwd == 0.0 and e_inv == 0.0
+               and torch.equal(coeffs, rc) and torch.equal(back, rback),
                f"a block kernel differs from its plain version (B={nblocks}"
                f", C={nchan}): fwd {e_fwd}, inv {e_inv}")
+        runs = len(rb.channel_groups(nchan))
+        _check(rb.LAUNCHES == {"fwd_blocks": runs, "inv_blocks": runs},
+               f"C={nchan} took {rb.LAUNCHES} launches, not {runs} each")
         errs["fwd_blocks"] = max(errs["fwd_blocks"], e_fwd)
         errs["inv_blocks"] = max(errs["inv_blocks"], e_inv)
     _line("c", shapes=",".join(f"{b}x{c}" for b, c in shapes),
           patterns=256, mask_wout="identical",
           fwd_max_abs_err=errs["fwd_blocks"],
           inv_max_abs_err=errs["inv_blocks"], tol=0)
+    _lane_channels_check(device)
     return errs
+
+
+def _lane_channels_check(device, nchan=2, depth=8):
+    """The float RAHT lane at a channel count the kernels are not built
+    for, on the card: ``forward_device`` on (N, 2) values equals, bit for
+    bit, the lane run on each channel alone (the kernels treat channels
+    independently), with one launch per level and run of channels, and
+    ``inverse_device`` gives the values back."""
+    import torch
+
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_blocks as rb
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_device
+    uniq, colors = bench_cloud(n=20_000, depth=depth)
+    vals = colors[:, :nchan].astype(np.float32)
+    staged = raht_device.stage_plan(uniq, depth, device)
+    rb.reset_launch_counts()
+    acs, root = raht_device.forward_device(uniq, vals, depth, staged=staged)
+    back = raht_device.inverse_device(uniq, acs, root, depth, staged=staged)
+    launches = dict(rb.LAUNCHES)
+    _sync(device)
+    runs = len(rb.channel_groups(nchan)) * depth
+    _check(launches == {"fwd_blocks": runs, "inv_blocks": runs},
+           f"the C={nchan} lane took {launches} launches, not {runs} each")
+    for ch in range(nchan):
+        one, root1 = raht_device.forward_device(uniq, vals[:, ch], depth,
+                                                staged=staged)
+        _check(torch.equal(root[:, ch], root1[:, 0])
+               and all(torch.equal(a[0][:, :, ch], b[0][:, :, 0])
+                       and torch.equal(a[1], b[1])
+                       for a, b in zip(acs, one)),
+               f"channel {ch} of the C={nchan} lane differs from the lane "
+               f"on that channel alone")
+    err = float(np.abs(back.cpu().numpy() - vals).max())
+    _check(root.device == device and back.shape == vals.shape
+           and err < LANE_INVERSE_MAX,
+           f"the C={nchan} lane's inverse is off by {err}")
+    _line("c", lane_channels=nchan, points=uniq.size, depth=depth,
+          vs_single_channel_lanes="identical",
+          inverse_max_abs_err=err, tol=LANE_INVERSE_MAX,
+          launches=json.dumps(launches, separators=(",", ":")))
 
 
 def bench_cloud(n=BENCH_POINTS, depth=BENCH_DEPTH):
@@ -506,6 +565,40 @@ def _rans_case(device, uniq, depth, payload):
     return run, errs
 
 
+def _emit_shapes_check(run, device, lanes=EMIT_RAGGED_LANES):
+    """``encode_emit`` against its plain version at the shapes its slabs
+    and blocks divide unevenly, cut from the run's table pass: ``lanes``
+    lanes (no multiple of a block's 32, so the last block is ragged)
+    over every step, fewer steps than one slab, one lane, and no step at
+    all.  Returns (the max abs difference, the shapes as text)."""
+    import torch
+
+    from mpeg_pcc_tmc13_tpu_torch.ops import rans_lanes as L
+    G, K = run.f_steps.shape
+    _check(lanes % 32 and lanes < K, f"{lanes} lanes do not cut {K} raggedly")
+    # the kernel's table of magic numbers (from a double division) against
+    # the integer formula, for every frequency
+    m, inc, _ = L.emit_reciprocal(np.arange(1, L.M + 1))
+    want = (m & np.uint64(0x7FFFFFFF)) | (inc << np.uint64(31))
+    got = L.emit_magic_table(device)[1:].cpu().numpy().astype(np.uint64)
+    _check(np.array_equal(got, want),
+           f"{int((got != want).sum())} magic numbers differ from the "
+           f"integer formula")
+    err, shapes = 0.0, []
+    for steps, k in ((G, lanes), (5, lanes), (G // 8, 1), (0, 33)):
+        args = (run.f_steps[:steps, :k].contiguous(),
+                run.c_steps[:steps, :k].contiguous(),
+                run.nvalid[:steps].clamp(max=k))
+        got, want = L.encode_emit(*args), L.encode_emit_ref(*args)
+        _sync(device)
+        err = max(err, _max_abs_diff(zip(got, want)))
+        _check(all(torch.equal(a, b) for a, b in zip(got, want)),
+               f"encode_emit differs from its plain version at {steps} "
+               f"steps of {k} lanes: max abs {err}")
+        shapes.append(f"{steps}x{k}")
+    return err, ",".join(shapes)
+
+
 def phase_g(device, uniq, depth, range_coded_bytes):
     """The rANS brick at the bench size through geometry_rans on the
     card: one table-pass launch per encode and one decode launch per
@@ -545,6 +638,11 @@ def phase_g(device, uniq, depth, range_coded_bytes):
           decode_level_row_counts_min=wide,
           table_pass_row_counts=pass_total, over=1 << 23,
           kernels_vs_plain=json.dumps(wide_errs, separators=(",", ":")))
+    emit_err, emit_shapes = _emit_shapes_check(run, device)
+    errs["encode_emit"] = max(errs["encode_emit"], emit_err)
+    _line("g", encode_emit_steps_x_lanes=emit_shapes, vs_plain="identical",
+          max_abs_err=emit_err, tol=0,
+          magic_numbers_vs_integer_formula="identical_x16384")
     row, occs, wins = run.busiest
     _line("g", points=uniq.size, depth=depth, lanes=run.K,
           steps=run.f_steps.shape[0], windows=run.windows,
@@ -1026,9 +1124,75 @@ def phase_f(device, uniq, depth, colors, rans, errs):
           rans_decode_s=",".join(f"{v:.4f}" for v in dec_s),
           note=f"first,then_{WARM_RANS_REPS}_warm")
 
+    _profile_rans(device, pos, depth, uniq.size, rans.payload)
     times = _block_times(device, uniq, depth, colors, errs)
-    times.update(_rans_times(rans))
-    return times
+    rans_times, chain_ms = _rans_times(rans)
+    times.update(rans_times)
+    return times, chain_ms
+
+
+# host-side calls that wait for the device, as the profiler names them:
+# ``counts.tolist()`` and ``.cpu()`` are a copy (aten::_to_copy over
+# cudaMemcpyAsync and cudaStreamSynchronize), ``wdense[flags]`` an
+# aten::index that sizes its result with aten::nonzero, ``int(tensor)``
+# an aten::item over aten::_local_scalar_dense
+SYNC_CALLS = ("aten::_local_scalar_dense", "aten::item", "aten::nonzero",
+              "aten::index", "aten::_to_copy", "cudaMemcpyAsync",
+              "cudaStreamSynchronize", "cudaDeviceSynchronize")
+
+
+def _profile_rans(device, pos, depth, npoints, payload, top=8):
+    """One warm rANS encode and one warm decode under ``torch.profiler``,
+    each on lines of its own: the ``top`` device operations by time, the
+    device-busy share of the wall, and the host calls that wait for the
+    device.  Measures only; fails if the profiler traced no device
+    operation."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpeg_pcc_tmc13_tpu_torch.models import geometry_rans as gr
+    runs = (("rans_encode", lambda: gr.encode(pos, depth, device=device)),
+            ("rans_decode", lambda: gr.decode(payload, npoints, depth,
+                                              device=device)))
+    for what, fn in runs:
+        fn()
+        _sync(device)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            _sync(device)
+            wall_us = (time.perf_counter() - t0) * 1e6
+        _sync(device)
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        plain_wall_us = (time.perf_counter() - t0) * 1e6
+        dev_ops, host = {}, {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                n, us = dev_ops.get(e.name, (0, 0.0))
+                dev_ops[e.name] = (n + 1, us + e.time_range.elapsed_us())
+            elif e.name in SYNC_CALLS:
+                n, us = host.get(e.name, (0, 0.0))
+                host[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        _check(dev_ops, f"torch.profiler traced no device operation in "
+               f"{what}")
+        busy_us = sum(us for _, us in dev_ops.values())
+        _line("f", profile=what, wall_ms=f"{wall_us / 1e3:.3f}",
+              wall_unprofiled_ms=f"{plain_wall_us / 1e3:.3f}",
+              device_busy_ms=f"{busy_us / 1e3:.3f}",
+              device_busy_share=f"{busy_us / wall_us:.3f}",
+              device_ops=sum(n for n, _ in dev_ops.values()),
+              distinct=len(dev_ops))
+        ranked = sorted(dev_ops.items(), key=lambda kv: -kv[1][1])[:top]
+        for rank, (name, (n, us)) in enumerate(ranked, 1):
+            _line("f", profile=what, rank=rank, device_ms=f"{us / 1e3:.4f}",
+                  calls=n, op=repr(name[:100]))
+        _line("f", profile=what, host_calls_that_wait=json.dumps(
+            {k: {"calls": n, "ms": round(us / 1e3, 3)}
+             for k, (n, us) in sorted(host.items())},
+            separators=(",", ":")))
 
 
 def _rans_times(run):
@@ -1056,7 +1220,16 @@ def _rans_times(run):
         steps=G, lanes=K)
     nbytes["encode_emit"] = _io_bytes(*args, *L.encode_emit(*args))
     times["encode_emit"] = (k, p, d, *_bound_ms(nbytes["encode_emit"]))
-    _line("f", kernel="encode_emit", chain=f"{G}_dependent_steps_per_lane")
+    # the chain that floors it: the step's dependent latency, from one
+    # warp running the kernel's step alone on register parameters
+    cycles, ns = min(L.emit_chain_probe(run.f_steps.device)
+                     for _ in range(3))
+    chain_ms = G * ns * 1e-6
+    _line("f", kernel="encode_emit", chain=f"{G}_dependent_steps_per_lane",
+          step_cycles=f"{cycles:.2f}", step_ns=f"{ns:.3f}",
+          step_from="one_warp_timing_of_the_chain_alone",
+          chain_bound_ms=f"{chain_ms:.4f}",
+          share_of_chain_bound=f"{chain_ms / d:.3f}")
     rec = run.rec
     st_k, st_p = _new_level_state(rec), _new_level_state(rec)
     k, p, d = _turns(
@@ -1074,7 +1247,7 @@ def _rans_times(run):
         _line("f", kernel=name, pass_ms=f"{k:.4f}", device_ms=f"{d:.4f}",
               bound_ms=f"{bound:.4f}", bound_by=by,
               share=f"{bound / d:.4f}", bytes=nbytes[name])
-    return times
+    return times, {"encode_emit": chain_ms}
 
 
 def _level_bytes(rec):
@@ -1148,8 +1321,8 @@ def main() -> int:
     phase_i(device, uniq, BENCH_DEPTH)                         # (i)
     phase_j(device, uniq, BENCH_DEPTH, r.geom_payload)         # (j)
     phase_k(device, uniq, BENCH_DEPTH, colors, smi)            # (k)
-    times = phase_f(device, uniq, BENCH_DEPTH, colors, rans,   # (f)
-                    errs)
+    times, chain_ms = phase_f(device, uniq, BENCH_DEPTH,       # (f)
+                              colors, rans, errs)
 
     kernels = []
     for key, (name, src, replaces) in KERNELS.items():
@@ -1160,7 +1333,8 @@ def main() -> int:
             "replaces": replaces, "launches": launches[key],
             "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
             "device_ms": device_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None})
+            "bound_by": bound_by, "chain_bound_ms": chain_ms.get(key),
+            "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -36,8 +36,9 @@
 //   thread r reads or writes its own row the 32 lanes of a warp hit 32
 //   banks.
 // * The channel count is a template argument, instantiated for the
-//   colour (3) and reflectance (1) lanes, the only counts the codec
-//   passes, so the channel and copy loops unroll.  A ragged last tile
+//   colour (3) and reflectance (1) lanes, the counts the codec passes,
+//   so the channel and copy loops unroll; the wrapper sends any other
+//   count through these two in runs of 3 and 1 channels.  A ragged last tile
 //   copies only its rows, and threads past the end skip the arithmetic.
 //
 // A first design mapped one thread to each (block, slot) and ran the

@@ -33,7 +33,12 @@
 //   then counts them.  The floor is the busiest row's chain of windows.
 // * Emission: one rANS state per lane over G dependent steps.  One
 //   thread per lane keeps its state in a register for the whole chain;
-//   lanes are independent, so there is no cross-thread traffic.
+//   lanes are independent.  The chain reads no global memory and holds
+//   no division: f and c are staged into shared memory slabs ahead
+//   (cp.async), and producer warps turn each step's f into a
+//   multiply-high reciprocal, its threshold and its multiplier, nvalid
+//   folded in, for a consumer warp that runs the chain alone (see there).
+//   The floor is G times the dependent instructions of a step.
 // * Decode: the G tiles of a decode are one chain (each lane's state,
 //   and the word stream's cursor shared by all lanes), and after every
 //   window of UPD_TILES tiles the rows it touched (~340 of the 2048 at
@@ -78,7 +83,17 @@ constexpr uint32_t kRansL = 1u << 16;
 constexpr int kCtx = 2048;          // context rows
 constexpr int kUpdTiles = 4;        // tiles of a level between refreshes
 constexpr int kRowThreads = 256;    // threads of a table-pass CTA (a row)
-constexpr int kEmitThreads = 64;    // lanes per block of the emission
+constexpr int kEmitLanes = 32;      // lanes of an emission block
+constexpr int kEmitSteps = 8;       // steps of a slab of the emission
+constexpr int kEmitPending = 2;     // cp.async groups a wait leaves in flight
+constexpr int kEmitAhead = 3;       // slabs between a copy of f, c and its use
+constexpr int kEmitRing = 4;        // slabs of f and c staged at a time
+constexpr int kEmitTable = kM + 4;  // magic numbers 0..2^14, padded to 16 B
+constexpr int kEmitProducers = 2;   // producer warps of a block
+constexpr int kEmitThreads = (1 + kEmitProducers) * kEmitLanes;
+constexpr int kEmitSlots = 4;       // prepared slabs between the warps
+constexpr int kEmitFullBar = 1;     // named barriers: slot i full,
+constexpr int kEmitEmptyBar = 1 + kEmitSlots;  // slot i empty
 constexpr int kClusterCtas = 16;    // CTAs of the decode's cluster
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -204,31 +219,375 @@ rans_table_pass_kernel(const int32_t* __restrict__ sym,
 // ---------------------------------------------------------------------
 // encoder emission: one thread per lane, steps g = G-1 .. 0
 // ---------------------------------------------------------------------
+// A lane's state is one chain of G dependent steps.  A warp issues in
+// order, so whatever shares a warp with the chain and stalls, stalls the
+// chain, and every instruction beside it takes an issue slot from it.
+// The design therefore gives a block of kEmitLanes lanes three warps
+// (the cycle counts below were read on an NVIDIA H100 80GB HBM3 at 700 W,
+// 1,790 steps of 1,024 lanes):
+//
+// * The consumer warp runs the chain and nothing else: per step the
+//   dependent instructions of emit_step (compare, select, add,
+//   multiply-high, shift, multiply-add) and the two stores, per slab of
+//   kEmitSteps steps one wait on a named barrier and kEmitSteps 16-byte
+//   loads of prepared parameters from shared memory, taken a slab before
+//   the chain needs them.  It reads no global memory, divides nothing, and
+//   has no branch in its loop body.
+// * kEmitProducers producer warps prepare those parameters, slabs ahead,
+//   taking the slabs in turn (one producer could not keep up: its 36
+//   instructions a step, with the waits between them, came to some 85
+//   cycles a step, against 41 of the chain).  f and c reach a producer
+//   asynchronously, with 4-byte cp.async that no register waits for:
+//   kEmitAhead of its slabs ahead a thread copies its own lane's f and c of
+//   a slab (and the slab's nvalid entries) into its ring in shared memory,
+//   one cp.async group a slab, and waits for all but the newest
+//   kEmitPending groups.  It then turns f, c and nvalid into the step's
+//   parameters (emit_prep: the magic number of f from a table, below, the
+//   threshold, the multiplier, nvalid folded in) in a ring of kEmitSlots
+//   slabs of uint4 that the consumer reads.  Two named barriers a slot
+//   (full, empty; bar.arrive on one side, bar.sync on the other) pace the
+//   consumer and the slot's producer.
+// * The table of magic numbers (64 KB) is copied into shared memory when
+//   the block starts: gathered from global memory it cost a producer some
+//   60 cycles a step (32 scattered sectors an instruction).
+// * The slabs are aligned so that the last one ends at g = 0; the first
+//   starts above G - 1 with steps that do not exist: they are prepared as
+//   invalid (the identity), and their stores are predicated off.
+// * A thread only ever reads what its own lane's threads wrote (the table
+//   and nvalid apart, which __syncthreads and the producer's __syncwarp
+//   cover), and no thread leaves early, so a ragged last block
+//   (lanes % kEmitLanes != 0) strands no barrier: its surplus threads read
+//   the last lane's column and store nothing.  Rows need no 16-byte
+//   alignment (any K); a warp instruction still moves 128 contiguous bytes.
+//
+// The floor is G times the step's dependent latency; the launcher
+// rans_emit_chain_probe_launch times that chain alone.
+
+// The magic number of a frequency f (1..2^14): the quotient q = floor(x / f)
+// of any 32-bit x is
+//   q = ((m * x + (inc ? m : 0)) >> 32) >> sh          (64-bit product)
+// with, for f >= 2, sh = ceil(log2 f) - 1 (so 2^sh < f <= 2^(sh+1)),
+// N = 32 + sh, m_d = floor(2^N / f) in [2^31, 2^32) and e = 2^N - m_d * f
+// in [0, f):
+//   e = 0:         m = m_d, inc = 0.  m * x / 2^N = x / f exactly.
+//   0 < e <= 2^sh: m = m_d, inc = 1 (round down, x + 1).  With x = q f + r,
+//                  m (x+1) / 2^N = q + (r+1)/f - e (x+1) / (f 2^N); the last
+//                  term is positive and at most 2^sh 2^32 / (f 2^N) = 1/f
+//                  <= (r+1)/f, so the value lies in [q, q + 1).
+//   e > 2^sh:      m = m_d + 1, inc = 0 (round up): its excess e' = f - e
+//                  is below 2^(sh+1) - 2^sh = 2^sh, and m x / 2^N = q + r/f
+//                  + e' x / (f 2^N) with e' x / (f 2^N) < 2^sh 2^32 /
+//                  (f 2^N) = 1/f, so the value lies in [q, q + 1).
+// m (x + 1) < 2^64, so nothing overflows.  f = 1 takes m = 2^32 - 1,
+// inc = 1, sh = 0: floor((2^32 - 1)(x + 1) / 2^32) = x.  (The round-up and
+// round-down magic numbers of Alverson and of Robison; ops/rans_lanes.py
+// keeps the same formula in numpy, and a test holds it to x // f.)
+//
+// The step multiplies x + inc in 32 bits.  That cannot wrap: the x it
+// divides is below f << 18 (a state that reaches f << 18 has emitted and
+// is below 2^16), inc = 1 only for an f that is no power of two, so
+// x + 1 <= (2^14 - 1) << 18 < 2^32.
+//
+// m_d comes from one double division: 2^N / f is either an integer below
+// 2^32 (exact in double) or at least 1/f >= 2^-14 away from one, and the
+// correctly rounded quotient is within 2^-53 * 2^32 = 2^-21 of it, so
+// rounding down gives m_d.  That division is a call with a branch, far
+// too slow for the emission's loop, so a launch first tabulates the 2^14
+// magic numbers (64 KB, rans_emit_table_kernel) and the loop looks them up.
+//
+// Returned packed: m's top bit is always set, so inc takes its place.
+__device__ __forceinline__ uint32_t emit_magic(uint32_t f) {
+  if (f == 1u) return 0xFFFFFFFFu;
+  const int sh = 31 - __clz((int)(f - 1u));
+  const double two_n = __hiloint2double((1023 + 32 + sh) << 20, 0);
+  uint32_t m = __double2uint_rd(two_n / (double)f);
+  const uint32_t e = 0u - m * f;  // 2^N = 0 mod 2^32 and e < f
+  const bool up = e > (1u << sh);
+  const uint32_t inc = (e != 0u && !up) ? 1u : 0u;
+  m += up ? 1u : 0u;
+  return (m & 0x7FFFFFFFu) | (inc << 31);
+}
+
+// magic[f] for f = 1 .. 2^14 (entry 0 and the padding are unused)
+__global__ void __launch_bounds__(256)
+rans_emit_table_kernel(uint32_t* __restrict__ magic) {
+  const uint32_t f = blockIdx.x * 256 + threadIdx.x;
+  if (f < kEmitTable) magic[f] = (f && f <= kM) ? emit_magic(f) : 0u;
+}
+
+// Parameters of one (step, lane), from f (1..2^14), its magic number, c
+// and whether the lane codes a symbol at the step:
+//   x = m, y = f * 2^18 - 1 (a state above it emits a word first),
+//   z = c - inc, w = (2^14 - f) | sh << 16 | inc << 31.
+// An invalid lane gets all of them 0 but y = 2^32 - 1: it never emits and
+// its step is the identity.  Masks, not selects of whole structs, so that
+// no branch comes of it.
+__device__ __forceinline__ uint4 emit_prep(uint32_t f, uint32_t magic,
+                                           uint32_t c, bool valid) {
+  const uint32_t keep = valid ? 0xFFFFFFFFu : 0u;
+  const uint32_t sh = f == 1u ? 0u : 31u - __clz((int)(f - 1u));
+  const uint32_t inc = magic >> 31;
+  return make_uint4((magic | 0x80000000u) & keep,
+                    ((f << (32 - kMBits)) - 1u) | ~keep, (c - inc) & keep,
+                    ((kM - f) | (sh << 16) | (inc << 31)) & keep);
+}
+
+// One step of a lane's chain: a state above the threshold first emits its
+// low 16 bits (the caller stores them), then with xi = x + inc
+//   x -> ((x / f) << 14) + x % f + c = xi + (c - inc) + (x / f) * (2^14 - f).
+__device__ __forceinline__ uint32_t emit_step(uint32_t s, const uint4 p,
+                                              bool& emit) {
+  const uint32_t mul = p.w & 0xFFFFu, sh = (p.w >> 16) & 15u;
+  const uint32_t inc = p.w >> 31;
+  emit = s > p.y;
+  const uint32_t xi = emit ? (s >> 16) + inc : s + inc;
+  const uint32_t q = __umulhi(p.x, xi) >> sh;
+  return q * mul + (xi + p.z);
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Stores under a predicate, never a branch.
+__device__ __forceinline__ void store_if(int32_t* p, int32_t v, bool ok) {
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.u32 q, %2, 0;\n"
+      " @q st.global.u32 [%0], %1;\n}\n" ::"l"(p),
+      "r"(v), "r"((uint32_t)ok)
+      : "memory");
+}
+
+__device__ __forceinline__ void store_if(uint8_t* p, uint32_t v, bool ok) {
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.u32 q, %2, 0;\n"
+      " @q st.global.u8 [%0], %1;\n}\n" ::"l"(p),
+      "r"(v), "r"((uint32_t)ok)
+      : "memory");
+}
+
+// Named barriers (id 0 is __syncthreads'): n threads in all, those that
+// arrive and those that wait.  Prior shared-memory accesses of the
+// arriving threads are performed before the waiting ones go on.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+struct EmitShared {
+  uint32_t table[kEmitTable];                      // magic number of each f
+  struct Staged {                     // a producer's ring of slabs
+    int32_t f[kEmitRing][kEmitSteps][kEmitLanes];
+    int32_t c[kEmitRing][kEmitSteps][kEmitLanes];
+    int32_t nv[kEmitRing][kEmitLanes];  // their nvalid, step j at [j]
+  } staged[kEmitProducers];
+  uint4 prm[kEmitSlots][kEmitSteps][kEmitLanes];  // prepared slabs
+};
+
+// What a producer thread needs to find its slabs: slab b holds the steps
+// g = top0 - b * kEmitSteps - j, j = 0 .. kEmitSteps - 1.  Rows read ahead
+// are clamped into 0 .. G-1 (a step that does not exist reads a row that
+// does, and is prepared as invalid).
+struct EmitWalk {
+  const int32_t* fsteps;
+  const int32_t* csteps;
+  const int32_t* nvalid;
+  int nsteps, top0, lanes;
+  int clane;  // the thread's lane, or the last lane for a surplus thread
+
+  __device__ __forceinline__ int top(int b) const {
+    return top0 - b * kEmitSteps;
+  }
+  __device__ __forceinline__ int row(int g) const {
+    return min(max(g, 0), nsteps - 1);
+  }
+};
+
+// Slab b into stage i % kEmitRing of a producer's ring (i counts the
+// producer's own slabs).
+__device__ __forceinline__ void emit_stage_raw(EmitShared::Staged& st,
+                                               const EmitWalk& w, int b,
+                                               int i) {
+  const int tid = threadIdx.x % kEmitLanes, stage = i % kEmitRing;
+#pragma unroll
+  for (int j = 0; j < kEmitSteps; ++j) {
+    const int at = w.row(w.top(b) - j) * w.lanes + w.clane;
+    cp_async4(&st.f[stage][j][tid], w.fsteps + at);
+    cp_async4(&st.c[stage][j][tid], w.csteps + at);
+  }
+  cp_async4(&st.nv[stage][tid], w.nvalid + w.row(w.top(b) - tid));
+  cp_async_commit();  // a group a slab
+}
+
+// Producer warp `part` of kEmitProducers: the parameters of the slabs
+// b = part, part + kEmitProducers, ... into slot b % kEmitSlots.  Its
+// next kEmitAhead slabs are in flight, a group each, and the wait leaves
+// all but the oldest pending.
+__device__ __forceinline__ void emit_produce(EmitShared& sh,
+                                             const EmitWalk& w, int nslabs,
+                                             int part) {
+  static_assert(kEmitAhead > kEmitPending && kEmitRing > kEmitAhead,
+                "the oldest slab in flight must land, and not be overwritten");
+  static_assert(kEmitSlots % kEmitProducers == 0,
+                "a slot must come back to the producer that filled it");
+  const int tid = threadIdx.x % kEmitLanes;
+  EmitShared::Staged& st = sh.staged[part];
+#pragma unroll
+  for (int i = 0; i < kEmitAhead; ++i)
+    emit_stage_raw(st, w, part + i * kEmitProducers, i);
+  for (int i = 0, b = part; b < nslabs; ++i, b += kEmitProducers) {
+    // The nvalid of the slab before, which the slab staged now
+    // overwrites, was read by every lane before this __syncwarp.
+    cp_async_wait<kEmitPending>();
+    __syncwarp();
+    emit_stage_raw(st, w, b + kEmitAhead * kEmitProducers, i + kEmitAhead);
+    const int stage = i % kEmitRing, slot = b % kEmitSlots;
+    uint4 prm[kEmitSteps];
+#pragma unroll
+    for (int j = 0; j < kEmitSteps; ++j) {
+      const int g = w.top(b) - j;  // >= 0; above G-1 only in slab 0
+      const bool valid = g < w.nsteps && w.clane < st.nv[stage][j];
+      const uint32_t f = min((uint32_t)st.f[stage][j][tid], kM);
+      prm[j] = emit_prep(f, sh.table[f], (uint32_t)st.c[stage][j][tid],
+                         valid);
+    }
+    // the consumer has read what the slot held (slab b - kEmitSlots)
+    if (b >= kEmitSlots) bar_sync(kEmitEmptyBar + slot, 2 * kEmitLanes);
+#pragma unroll
+    for (int j = 0; j < kEmitSteps; ++j) sh.prm[slot][j][tid] = prm[j];
+    bar_arrive(kEmitFullBar + slot, 2 * kEmitLanes);
+  }
+  cp_async_wait<0>();
+}
+
+// The consumer's next slab: wait for its slot, read it, give it back (if
+// a later slab will want it).
+__device__ __forceinline__ void emit_take_slab(EmitShared& sh, int b,
+                                               int nslabs,
+                                               uint4 (&prm)[kEmitSteps]) {
+  const int tid = threadIdx.x % kEmitLanes, slot = b % kEmitSlots;
+  bar_sync(kEmitFullBar + slot, 2 * kEmitLanes);
+#pragma unroll
+  for (int j = 0; j < kEmitSteps; ++j) prm[j] = sh.prm[slot][j][tid];
+  if (b + kEmitSlots < nslabs)
+    bar_arrive(kEmitEmptyBar + slot, 2 * kEmitLanes);
+}
+
+// The consumer warp: the chain and its stores.  Slab b + 1's parameters
+// are read before slab b's chain runs, so their latency hides behind it.
+__device__ __forceinline__ void emit_consume(
+    EmitShared& sh, int64_t* __restrict__ states_out,
+    int32_t* __restrict__ words, uint8_t* __restrict__ flags, int nsteps,
+    int nslabs, int lanes, int lane) {
+  const bool live = lane < lanes;
+  uint32_t s = kRansL;
+  uint4 prm[kEmitSteps], nxt_prm[kEmitSteps];
+  emit_take_slab(sh, 0, nslabs, prm);
+  for (int b = 0; b < nslabs; ++b) {
+    if (b + 1 < nslabs) emit_take_slab(sh, b + 1, nslabs, nxt_prm);
+    const int top = (nslabs - b) * kEmitSteps - 1;
+    // offsets as unsigned: a row that does not exist, or a surplus lane,
+    // wraps to an address that its predicate never lets through
+    const uint32_t at = (uint32_t)(top * lanes + lane);
+#pragma unroll
+    for (int j = 0; j < kEmitSteps; ++j) {
+      bool emit;
+      const uint32_t nxt = emit_step(s, prm[j], emit);
+      const bool ok = live && top - j < nsteps;
+      const uint32_t off = at - (uint32_t)(j * lanes);
+      store_if(words + off, emit ? (int32_t)(s & 0xFFFFu) : 0, ok);
+      store_if(flags + off, emit ? 1u : 0u, ok);
+      s = nxt;
+    }
+#pragma unroll
+    for (int j = 0; j < kEmitSteps; ++j) prm[j] = nxt_prm[j];
+  }
+  if (live) states_out[lane] = (int64_t)s;
+}
+
+// nsteps and (nsteps + kEmitSteps) * lanes fit an int (the launcher
+// checks), so every index is 32-bit.  magic: kEmitTable entries.
 __global__ void __launch_bounds__(kEmitThreads)
 rans_encode_emit_kernel(const int32_t* __restrict__ fsteps,
                         const int32_t* __restrict__ csteps,
                         const int32_t* __restrict__ nvalid,
+                        const uint32_t* __restrict__ magic,
                         int64_t* __restrict__ states_out,
                         int32_t* __restrict__ words,
-                        uint8_t* __restrict__ flags, int64_t nsteps,
-                        int lanes) {
-  const int lane = blockIdx.x * kEmitThreads + threadIdx.x;
-  if (lane >= lanes) return;
-  uint32_t s = kRansL;
-  for (int64_t g = nsteps - 1; g >= 0; --g) {
-    const int64_t at = g * lanes + lane;
-    const bool valid = lane < nvalid[g];
-    const uint32_t f = valid ? (uint32_t)fsteps[at] : 1u;
-    const uint32_t c = (uint32_t)csteps[at];
-    const bool emit = valid && s >= (f << (32 - kMBits));
-    words[at] = emit ? (int32_t)(s & 0xFFFFu) : 0;
-    flags[at] = emit ? 1 : 0;
-    const uint32_t x = emit ? (s >> 16) : s;
-    const uint32_t q = x / f;
-    const uint32_t nxt = (q << kMBits) + (x - q * f) + c;
-    s = valid ? nxt : x;
+                        uint8_t* __restrict__ flags, int nsteps, int lanes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  EmitShared& sh = *reinterpret_cast<EmitShared*>(smem);
+  const int lane = blockIdx.x * kEmitLanes + threadIdx.x % kEmitLanes;
+  const int warp = threadIdx.x / kEmitLanes;  // 0 consumes, the rest produce
+  if (nsteps == 0) {  // the same for every thread
+    if (warp == 0 && lane < lanes) states_out[lane] = (int64_t)kRansL;
+    return;
   }
-  states_out[lane] = (int64_t)s;
+  // the table of magic numbers, which the producers look up
+  for (int i = threadIdx.x; i < kEmitTable / 4; i += kEmitThreads)
+    cp_async16(sh.table + 4 * i, magic + 4 * i);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const int nslabs = (nsteps + kEmitSteps - 1) / kEmitSteps;
+  if (warp) {
+    const EmitWalk w = {fsteps, csteps, nvalid, nsteps,
+                        nslabs * kEmitSteps - 1, lanes, min(lane, lanes - 1)};
+    emit_produce(sh, w, nslabs, warp - 1);
+  } else {
+    emit_consume(sh, states_out, words, flags, nsteps, nslabs, lanes, lane);
+  }
+}
+
+// The emission's chain alone: one warp runs nsteps dependent emit_step
+// calls on parameters held in registers and reports the SM cycles and the
+// nanoseconds they took (out[0], out[1]; out[2] keeps the state alive).
+__global__ void __launch_bounds__(32)
+rans_emit_chain_probe_kernel(uint32_t f, uint32_t c, int64_t nsteps,
+                             int64_t* __restrict__ out) {
+  const uint4 p = emit_prep(f, emit_magic(f), c, true);
+  uint32_t s = kRansL + threadIdx.x;
+  uint32_t any = 0u;
+  uint64_t n0, n1;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(n0));
+  const int64_t t0 = clock64();
+  for (int64_t i = 0; i < nsteps; i += 16) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      bool emit;
+      s = emit_step(s, p, emit);
+      any |= emit ? 1u : 0u;
+    }
+  }
+  const int64_t t1 = clock64();
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(n1));
+  if (threadIdx.x == 0) {
+    out[0] = t1 - t0;
+    out[1] = (int64_t)(n1 - n0);
+  }
+  if (s == 0x12345u) out[2] = (int64_t)(s + any);  // keeps the chain alive
 }
 
 // ---------------------------------------------------------------------
@@ -532,16 +891,48 @@ extern "C" int rans_table_pass_launch(const void* sym, const void* win,
   return (int)cudaGetLastError();
 }
 
+// magic: scratch of 2^14 + 4 uint32, which the launch fills first.
 extern "C" int rans_encode_emit_launch(const void* fsteps, const void* csteps,
-                                       const void* nvalid, void* states,
-                                       void* words, void* flags,
+                                       const void* nvalid, void* magic,
+                                       void* states, void* words, void* flags,
                                        int64_t nsteps, int lanes,
                                        void* stream) {
-  if (lanes <= 0 || nsteps < 0) return (int)cudaErrorInvalidValue;
-  const int grid = (lanes + kEmitThreads - 1) / kEmitThreads;
-  rans_encode_emit_kernel<<<grid, kEmitThreads, 0, (cudaStream_t)stream>>>(
+  if (lanes <= 0 || nsteps < 0 ||
+      (nsteps + kEmitSteps) * (int64_t)lanes > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  // above 48 KB of shared memory a kernel must opt in (per device; a
+  // cheap host call, so on every launch)
+  cudaError_t rc = cudaFuncSetAttribute(
+      rans_encode_emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(EmitShared));
+  if (rc != cudaSuccess) return (int)rc;
+  rans_emit_table_kernel<<<(kEmitTable + 255) / 256, 256, 0,
+                           (cudaStream_t)stream>>>((uint32_t*)magic);
+  const int grid = (lanes + kEmitLanes - 1) / kEmitLanes;
+  rans_encode_emit_kernel<<<grid, kEmitThreads, sizeof(EmitShared),
+                            (cudaStream_t)stream>>>(
       (const int32_t*)fsteps, (const int32_t*)csteps, (const int32_t*)nvalid,
-      (int64_t*)states, (int32_t*)words, (uint8_t*)flags, nsteps, lanes);
+      (const uint32_t*)magic, (int64_t*)states, (int32_t*)words,
+      (uint8_t*)flags, (int)nsteps, lanes);
+  return (int)cudaGetLastError();
+}
+
+// The emission's table alone: magic (2^14 + 4 uint32) gets the packed
+// magic number of every frequency, as rans_encode_emit_launch builds it.
+extern "C" int rans_emit_table_launch(void* magic, void* stream) {
+  rans_emit_table_kernel<<<(kEmitTable + 255) / 256, 256, 0,
+                           (cudaStream_t)stream>>>((uint32_t*)magic);
+  return (int)cudaGetLastError();
+}
+
+// Times the emission's chain alone for a symbol of frequency f and start
+// c: out (3,) int64 gets the SM cycles and the nanoseconds of nsteps
+// dependent steps of one warp.
+extern "C" int rans_emit_chain_probe_launch(int f, int c, int64_t nsteps,
+                                            void* out, void* stream) {
+  if (f < 1 || f > (int)kM || nsteps < 0) return (int)cudaErrorInvalidValue;
+  rans_emit_chain_probe_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
+      (uint32_t)f, (uint32_t)c, nsteps, (int64_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -129,9 +129,13 @@ def _open(so: Path):
     lib.raht_inv_blocks_launch.restype = i32
     lib.rans_table_pass_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp]
     lib.rans_table_pass_launch.restype = i32
-    lib.rans_encode_emit_launch.argtypes = [vp, vp, vp, vp, vp, vp, i64,
-                                            i32, vp]
+    lib.rans_encode_emit_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+                                            i64, i32, vp]
     lib.rans_encode_emit_launch.restype = i32
+    lib.rans_emit_table_launch.argtypes = [vp, vp]
+    lib.rans_emit_table_launch.restype = i32
+    lib.rans_emit_chain_probe_launch.argtypes = [i32, i32, i64, vp, vp]
+    lib.rans_emit_chain_probe_launch.restype = i32
     lib.rans_decode_level_launch.argtypes = [vp, vp, vp, vp, vp, i64, vp,
                                              vp, vp, i64, i32, vp]
     lib.rans_decode_level_launch.restype = i32

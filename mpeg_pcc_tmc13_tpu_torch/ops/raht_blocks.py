@@ -5,7 +5,11 @@ Same public layout and dtypes as the JAX functions: values/coefficients
 (B, 8, C) float32, weights (B, 8) float32, AC mask (B, 8) int32.
 
 * A CUDA tensor launches the hand-written kernel of
-  ``csrc/raht_blocks.cu`` (built on first use) or raises.
+  ``csrc/raht_blocks.cu`` (built on first use) or raises.  The kernels
+  are built for 1 and 3 channels; any other count goes through them in
+  groups of 3 and 1 channels (``channel_groups``), since the butterfly
+  treats channels independently and the output weights and the AC mask
+  depend on the weights alone.
 * A CPU tensor runs the plain PyTorch version, ``fwd_blocks_ref`` /
   ``inv_blocks_ref``, which is also what the kernels are checked against
   on the card.
@@ -30,8 +34,16 @@ _STAGES = (
     ((0, 4),),
 )
 
-# the kernels are built for reflectance (1) and colour (3) channels
-KERNEL_CHANNELS = (1, 3)
+
+def channel_groups(nchan: int):
+    """Split ``nchan`` channels into runs of the widths the kernels are
+    built for (colour, 3, and reflectance, 1): (start, width) pairs in
+    channel order, as many runs of 3 as fit and runs of 1 for the rest
+    (2 -> 1+1, 5 -> 3+1+1, 7 -> 3+3+1)."""
+    threes = nchan // 3
+    return ([(3 * i, 3) for i in range(threes)]
+            + [(c, 1) for c in range(3 * threes, nchan)])
+
 
 LAUNCHES = {"fwd_blocks": 0, "inv_blocks": 0}
 _COUNT_LOCK = threading.Lock()
@@ -131,10 +143,22 @@ def _kernel_inputs(vals, weights):
     _check("weights", weights, 2, torch.float32, dev)
     if weights.shape[0] != vals.shape[0]:
         raise ValueError("values and weights disagree on B")
-    if vals.shape[2] not in KERNEL_CHANNELS:
-        raise ValueError(f"the kernels take {KERNEL_CHANNELS} channels, "
-                         f"got {vals.shape[2]}")
     return vals.shape[0], vals.shape[2]
+
+
+def _by_channel_runs(launch, src: torch.Tensor, out: torch.Tensor) -> None:
+    """``out = f(src)`` for (B, 8, C) tensors of any C through an ``f``
+    that takes 1 or 3 channels: ``launch(part, res)`` runs on a
+    contiguous copy of each run of ``channel_groups(C)`` and its result
+    lands in the run's channels of ``out`` (no copies when C is 1 or 3).
+    Right for any ``f`` that treats channels independently."""
+    nc = src.shape[2]
+    for c0, n in channel_groups(nc):
+        part = src[:, :, c0:c0 + n].contiguous()
+        res = out if n == nc else torch.empty_like(part)
+        launch(part, res)
+        if res is not out:
+            out[:, :, c0:c0 + n] = res
 
 
 def _stream(t):
@@ -156,13 +180,22 @@ def fwd_blocks(vals: torch.Tensor, weights: torch.Tensor):
     if nb == 0:                        # a grid of 0 is no valid launch
         return coeffs, wout, mask
     lib = _kernels.load()
-    with torch.cuda.device(vals.device):
-        rc = lib.raht_fwd_blocks_launch(
-            vals.data_ptr(), weights.data_ptr(), coeffs.data_ptr(),
-            wout.data_ptr(), mask.data_ptr(), nb, nc, _stream(vals))
-    if rc != 0:
-        raise RuntimeError(f"raht_fwd_blocks launch failed: CUDA error {rc}")
-    _count("fwd_blocks")
+
+    def launch(part, res):
+        # wout and mask follow from the weights: every run writes the same
+        with torch.cuda.device(vals.device):
+            rc = lib.raht_fwd_blocks_launch(
+                part.data_ptr(), weights.data_ptr(), res.data_ptr(),
+                wout.data_ptr(), mask.data_ptr(), nb, part.shape[2],
+                _stream(vals))
+        if rc != 0:
+            raise RuntimeError(
+                f"raht_fwd_blocks launch failed: CUDA error {rc}")
+        _count("fwd_blocks")
+
+    if nc == 0:                        # wout and mask need one launch still
+        launch(vals.new_zeros(nb, 8, 1), vals.new_empty(nb, 8, 1))
+    _by_channel_runs(launch, vals, coeffs)
     return coeffs, wout, mask
 
 
@@ -173,14 +206,19 @@ def inv_blocks(coeffs: torch.Tensor, weights: torch.Tensor):
         return inv_blocks_ref(coeffs, weights)
     nb, nc = _kernel_inputs(coeffs, weights)
     out = torch.empty_like(coeffs)
-    if nb == 0:
+    if nb == 0 or nc == 0:
         return out
     lib = _kernels.load()
-    with torch.cuda.device(coeffs.device):
-        rc = lib.raht_inv_blocks_launch(
-            coeffs.data_ptr(), weights.data_ptr(), out.data_ptr(), nb, nc,
-            _stream(coeffs))
-    if rc != 0:
-        raise RuntimeError(f"raht_inv_blocks launch failed: CUDA error {rc}")
-    _count("inv_blocks")
+
+    def launch(part, res):
+        with torch.cuda.device(coeffs.device):
+            rc = lib.raht_inv_blocks_launch(
+                part.data_ptr(), weights.data_ptr(), res.data_ptr(), nb,
+                part.shape[2], _stream(coeffs))
+        if rc != 0:
+            raise RuntimeError(
+                f"raht_inv_blocks launch failed: CUDA error {rc}")
+        _count("inv_blocks")
+
+    _by_channel_runs(launch, coeffs, out)
     return out

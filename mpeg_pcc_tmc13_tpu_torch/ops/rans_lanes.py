@@ -22,6 +22,11 @@ are the reference's composition: a full ``quantize_tables_ref`` refresh
 per window around ``decode_tiles_ref``, or the encoder's loop over the
 windows; the kernels refresh only the context rows that changed.
 
+The emission kernel divides by multiply-high reciprocals;
+``emit_reciprocal``, ``emit_quotient`` and ``encode_emit_mirror`` keep
+that integer formula in numpy, so the CPU tests can hold it to ``//``
+and to the plain version.
+
 u32 rANS states are held in int64 tensors; the plain versions mask
 with ``0xFFFFFFFF`` where the reference's uint32 arithmetic would wrap.
 
@@ -34,6 +39,7 @@ from __future__ import annotations
 
 import threading
 
+import numpy as np
 import torch
 
 from . import _kernels
@@ -44,6 +50,7 @@ RANS_L = 1 << 16                # state lower bound
 N_CTX = 2048                    # child_idx(3b) << 8 | parent_occupancy
 U32 = 0xFFFFFFFF
 UPD_TILES = 4                   # tiles of K symbols between table refreshes
+EMIT_TABLE = M + 4              # the emission kernel's magic numbers, padded
 
 LAUNCHES = {"table_pass": 0, "encode_emit": 0, "decode_level": 0}
 _COUNT_LOCK = threading.Lock()
@@ -204,6 +211,79 @@ def encode_emit_ref(f_steps: torch.Tensor, c_steps: torch.Tensor,
     return states, words, flags
 
 
+def emit_reciprocal(f):
+    """The emission kernel's division-free quotient, its integer formula
+    in numpy: for frequencies ``f`` in 1..M returns uint64 arrays
+    (m, inc, sh) with ``x // f == ((m * (x + inc)) >> 32) >> sh`` for
+    every x < 2^32 (``emit_quotient``).
+
+    For f >= 2: sh = ceil(log2 f) - 1, N = 32 + sh, m_d = 2^N // f and
+    e = 2^N - m_d * f.  e = 0 keeps m_d; 0 < e <= 2^sh keeps m_d and
+    multiplies x + 1 (the round-down magic number); a larger e takes
+    m_d + 1 (the round-up one, whose excess f - e is below 2^sh).  f = 1
+    takes m = 2^32 - 1 on x + 1.  The argument for exactness stands at
+    ``emit_prep`` in ``csrc/rans_lanes.cu``."""
+    f = np.asarray(f, dtype=np.uint64)
+    if f.size and (f.min() < 1 or f.max() > M):
+        raise ValueError(f"frequencies must lie in 1..{M}")
+    one = np.uint64(1)
+    # bit_length(f - 1) - 1; frexp's exponent of an integer is its length
+    sh = (np.frexp((np.maximum(f, 2) - one).astype(np.float64))[1] - 1) \
+        .astype(np.uint64)
+    two_n = one << (np.uint64(32) + sh)
+    m = two_n // f
+    e = two_n - m * f
+    up = e > (one << sh)
+    inc = ((e != 0) & ~up).astype(np.uint64)
+    m = m + up.astype(np.uint64)
+    is1 = f == 1
+    return (np.where(is1, np.uint64(U32), m), np.where(is1, one, inc),
+            np.where(is1, np.uint64(0), sh))
+
+
+def emit_quotient(x, m, inc, sh):
+    """``x // f`` from ``emit_reciprocal(f)``: a multiply, its high
+    word, a shift (uint64 arrays; x < 2^32).  The kernel adds ``inc`` in
+    32 bits, which the x of its loop (below ``f << 18``) cannot wrap."""
+    x = np.asarray(x, dtype=np.uint64)
+    return ((m * (x + inc)) >> np.uint64(32)) >> sh
+
+
+def encode_emit_mirror(f_steps, c_steps, nvalid):
+    """The emission kernel's arithmetic in numpy, for the CPU tests:
+    per (step, lane) the parameters the kernel prepares off the chain
+    (reciprocal, threshold ``(f << 18) - 1``, multiplier ``M - f``; an
+    invalid lane gets a step that is the identity and never emits), then
+    the chain ``xi + (c - inc) + (x // f) * (M - f)`` mod 2^32 on them,
+    ``xi = x + inc`` being what the reciprocal multiplies.  Takes
+    and returns numpy arrays shaped and typed as ``encode_emit_ref``'s
+    tensors."""
+    f_steps = np.asarray(f_steps, dtype=np.int64)
+    G, K = f_steps.shape
+    valid = np.arange(K)[None, :] < np.asarray(nvalid)[:, None]
+    f = np.where(valid, f_steps, 1).astype(np.uint64)
+    m, inc, sh = emit_reciprocal(f)
+    mask = np.uint64(U32)
+    m = np.where(valid, m, 0)
+    thr = np.where(valid, ((f << np.uint64(18)) - np.uint64(1)) & mask, mask)
+    c = np.where(valid, np.asarray(c_steps, dtype=np.int64), 0) \
+        .astype(np.uint64) & mask
+    mul = np.where(valid, np.uint64(M) - f, 0)
+    inc = np.where(valid, inc, 0)
+    cz = (c - inc) & mask                   # the kernel's c - inc
+    s = np.full(K, RANS_L, dtype=np.uint64)
+    words = np.zeros((G, K), dtype=np.int32)
+    flags = np.zeros((G, K), dtype=bool)
+    for g in range(G - 1, -1, -1):
+        emit = s > thr[g]
+        xi = np.where(emit, s >> np.uint64(16), s) + inc[g]
+        q = ((m[g] * xi) >> np.uint64(32)) >> sh[g]
+        words[g] = np.where(emit, s & np.uint64(0xFFFF), 0)
+        flags[g] = emit
+        s = (q * mul[g] + xi + cz[g]) & mask
+    return s.astype(np.int64), words, flags
+
+
 def _search_sym(c_flat: torch.Tensor, ctxv: torch.Tensor,
                 slot: torch.Tensor) -> torch.Tensor:
     """Largest s with c[ctx][s] <= slot, as sym = s + 1 (1..255):
@@ -347,7 +427,14 @@ def table_pass(occ2: torch.Tensor, ctx2: torch.Tensor, counts, K: int):
 
 def encode_emit(f_steps: torch.Tensor, c_steps: torch.Tensor,
                 nvalid: torch.Tensor):
-    """Reverse rANS emission; see ``encode_emit_ref``."""
+    """Reverse rANS emission; see ``encode_emit_ref``.  The kernel gives
+    every 32 lanes a block of three warps: two stage f and c into shared
+    memory slabs ahead of the state and turn each step's division into a
+    multiply-high reciprocal (``emit_reciprocal`` is its formula; the
+    launch tabulates it for every frequency first), the third runs the
+    lanes' chains on those parameters alone, so a chain reads no global
+    memory and divides nothing.  Frequencies of valid lanes must lie in
+    1..M, and (G + 8) * K must fit an int32."""
     if f_steps.device.type == "cpu":
         return encode_emit_ref(f_steps, c_steps, nvalid)
     dev = _cuda_device(f_steps)
@@ -357,17 +444,21 @@ def encode_emit(f_steps: torch.Tensor, c_steps: torch.Tensor,
     G, K = f_steps.shape
     if c_steps.shape != f_steps.shape or nvalid.shape[0] != G:
         raise ValueError("f_steps, c_steps and nvalid disagree on (G, K)")
+    if (G + 8) * K >= 1 << 31:
+        raise ValueError(f"{G} steps of {K} lanes overflow int32 slots")
     states = torch.empty(K, dtype=torch.int64, device=dev)
     words = torch.empty(G, K, dtype=torch.int32, device=dev)
     flags = torch.empty(G, K, dtype=torch.bool, device=dev)
     if K == 0:
         return states, words, flags
+    # the kernel's scratch: the magic number of every frequency 0..M
+    magic = torch.empty(EMIT_TABLE, dtype=torch.int32, device=dev)
     lib = _kernels.load()
     with torch.cuda.device(dev):
         rc = lib.rans_encode_emit_launch(
             f_steps.data_ptr(), c_steps.data_ptr(), nvalid.data_ptr(),
-            states.data_ptr(), words.data_ptr(), flags.data_ptr(), G, K,
-            _stream(dev))
+            magic.data_ptr(), states.data_ptr(), words.data_ptr(),
+            flags.data_ptr(), G, K, _stream(dev))
     _launched("encode_emit", rc)
     return states, words, flags
 
@@ -415,3 +506,38 @@ def decode_level(c_flat: torch.Tensor, ctx_row: torch.Tensor,
             K, _stream(dev))
     _launched("decode_level", rc)
     return None
+
+
+def emit_magic_table(device) -> torch.Tensor:
+    """The table the emission kernel builds at each launch, alone:
+    (M + 1,) int64 with, at f >= 1, ``emit_reciprocal(f)``'s m with its
+    top bit (always set) replaced by inc; entry 0 is unused.  For
+    holding the kernel's double-division route to the integer formula
+    on the card; it counts no launch."""
+    dev = _cuda_device(torch.empty(0, device=device))
+    magic = torch.empty(EMIT_TABLE, dtype=torch.int32, device=dev)
+    lib = _kernels.load()
+    with torch.cuda.device(dev):
+        rc = lib.rans_emit_table_launch(magic.data_ptr(), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"emit table launch failed: CUDA error {rc}")
+    return magic[:M + 1].to(torch.int64) & U32
+
+
+def emit_chain_probe(device, f: int = 1000, c: int = 5000,
+                     nsteps: int = 1 << 18):
+    """Time the emission kernel's chain alone on the card: one warp
+    runs ``nsteps`` (a multiple of 16) dependent steps on register
+    parameters of a symbol (f, c).  Returns (SM cycles a step,
+    nanoseconds a step): what floors ``encode_emit`` per step.  A
+    measurement, not a kernel of the codec: it counts no launch."""
+    dev = _cuda_device(torch.empty(0, device=device))
+    out = torch.zeros(3, dtype=torch.int64, device=dev)
+    lib = _kernels.load()
+    with torch.cuda.device(dev):
+        rc = lib.rans_emit_chain_probe_launch(f, c, nsteps, out.data_ptr(),
+                                              _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"emit chain probe failed: CUDA error {rc}")
+    cycles, ns, _ = out.tolist()
+    return cycles / nsteps, ns / nsteps

@@ -300,3 +300,65 @@ def test_level_check_holds_every_output(which):
         chip_smoke._level_check(
             "fwd_blocks", lambda v, w: _flip_last(rb.fwd_blocks(v, w), which),
             rb.fwd_blocks_ref, fwd, cpu)
+
+
+# ---- any channel count: the split into runs of 3 and 1 channels ----
+
+
+@pytest.mark.parametrize("nchan", range(1, 9))
+def test_channel_groups_cover_every_channel_once(nchan):
+    groups = rb.channel_groups(nchan)
+    assert all(n in (1, 3) for _, n in groups)
+    assert [c for c0, n in groups for c in range(c0, c0 + n)] \
+        == list(range(nchan))
+    # as many runs of 3 as fit, then single channels
+    assert [n for _, n in groups] == [3] * (nchan // 3) + [1] * (nchan % 3)
+
+
+def test_channel_groups_of_no_channels():
+    assert rb.channel_groups(0) == []
+
+
+@pytest.mark.parametrize("nchan", [1, 2, 3, 5, 7])
+def test_channel_runs_compose_to_the_plain_version(nchan):
+    """The wrappers' split, with the plain versions standing in for the
+    1- and 3-channel kernels, gives the plain version on all channels
+    at once, bit for bit (channels are independent)."""
+    v, w = _blocks(300, nchan, 40 + nchan)
+    v, w = torch.as_tensor(v), torch.as_tensor(w)
+    widths = []
+
+    def fwd(part, res):
+        widths.append(part.shape[2])
+        assert part.is_contiguous() and res.is_contiguous()
+        res.copy_(rb.fwd_blocks_ref(part, w)[0])
+
+    coeffs = torch.empty_like(v)
+    rb._by_channel_runs(fwd, v, coeffs)
+    assert widths == [n for _, n in rb.channel_groups(nchan)]
+    want = rb.fwd_blocks_ref(v, w)[0]
+    assert torch.equal(coeffs, want)
+    back = torch.empty_like(v)
+    rb._by_channel_runs(
+        lambda part, res: res.copy_(rb.inv_blocks_ref(part, w)), want, back)
+    assert torch.equal(back, rb.inv_blocks_ref(want, w))
+
+
+@pytest.mark.parametrize("nchan", [2, 5])
+def test_device_lanes_take_any_channel_count(nchan):
+    """forward_device / inverse_device at C = 2 and 5 against the JAX
+    lane (Pallas in interpret mode), tests/test_pallas_raht.py's
+    tolerances (1e-2 forward, 2e-3 round trip)."""
+    codes, vals = _cloud(600, 4, c=nchan, seed=nchan)
+    vals = vals.astype(np.float32)
+    acs_t, root_t = trd.forward_device(codes, vals, 4, device="cpu")
+    acs_j, root_j = jrd.forward_device(codes, vals, 4, interpret=True)
+    assert root_t.shape == (1, nchan)
+    np.testing.assert_allclose(root_t.numpy(), np.asarray(root_j), atol=1e-2)
+    for (ct, mt), (cj, mj) in zip(acs_t, acs_j):
+        assert np.array_equal(mt.numpy(), np.asarray(mj))
+        np.testing.assert_allclose(ct.numpy(), np.asarray(cj), atol=1e-2)
+    rec = trd.inverse_device(codes, acs_t, root_t, 4, device="cpu")
+    rec_j = jrd.inverse_device(codes, acs_j, root_j, 4, interpret=True)
+    np.testing.assert_allclose(rec.numpy(), vals, atol=2e-3)
+    np.testing.assert_allclose(rec.numpy(), np.asarray(rec_j), atol=2e-3)
