@@ -43,6 +43,22 @@ Drives the port's main path (``mpeg_pcc_tmc13_tpu_torch``) once on
       stream equals the native one, every decode gives the unique input
       positions and the same colours, the device engine analysed on the
       card and every rANS kernel launched,
+  (l) the rest of the CLI, every failure fatal: the tmc3 syntax family
+      (``--refSyntax=1``) on the bench cloud with RAHT colour and with no
+      other flag (tmc3's predicting transform), each stream decoded in
+      this process and in a separate one with no ``--refSyntax``
+      (geometry exact, the same PLY bytes, the stream's size and SHA-256
+      equal to the JAX CLI's on the same cloud); trisoup geometry on the
+      bench cloud through the reference-exact brick
+      (``--geomEngine=obuf``, and under ``--refSyntax=1``), sizes and
+      SHA-256 pinned the same way, the decoded count equal to the
+      encoder's reconstruction and every decoded point within
+      ``TRISOUP_MAX_DISTANCE`` voxels of a source point; and trisoup's
+      numpy surface model on a smaller cloud (``TRISOUP_V2_POINTS``,
+      depth 10: it costs tens of seconds a side) with
+      ``--geomEngine=device`` (the octree front-end analysed on the
+      card) and ``native``: identical streams, and the decode equal to
+      the encoder's reconstruction,
   (f) timing: the stage times of a second (warm) round trip, and each
       kernel against its plain version at the shapes of (d) and (g):
       the pass through the wrappers (CUDA events), its device time (the
@@ -96,6 +112,38 @@ WARM_RANS_REPS = 3              # warm rANS encode + decode round trips
 REPO = Path(__file__).resolve().parent
 CLI_DIR = REPO / "build" / "chip_smoke_cli"      # git-ignored
 CLI_FLAGS = ("--attribute=color", "--transformType=0", f"--qp={BENCH_QP}")
+# (l): per-attribute options stand before the --attribute= that closes
+# them.  Size and SHA-256 of each stream are the JAX CLI's on the same
+# cloud (889,682 points), from a run of it on a CPU: the card's run is
+# held to the reference's bytes without JAX on its machine.
+RAHT_COLOUR = ("--transformType=0", f"--qp={BENCH_QP}", "--attribute=color")
+REF_SYNTAX_RUNS = {
+    "ref_raht": (("--refSyntax=1", *RAHT_COLOUR), 1_093_554,
+                 "c886f569c85bb9bae19a50612c6e307d"
+                 "bc364a965618251beda1ffce1cd05008"),
+    "ref_zero_flag": (("--refSyntax=1", "--attribute=color"), 2_760_952,
+                      "a39fd34a6304d15d186c879fa122e36f"
+                      "2566ba7673b8888e46d4b1ae0a90f151"),
+}
+TRISOUP_LOG2 = 3
+TRISOUP_EXACT_RUNS = {
+    "trisoup_obuf": ((f"--trisoupNodeSizeLog2={TRISOUP_LOG2}",
+                      "--geomEngine=obuf", "--attribute=color"), 928_758,
+                     "fbcded45237b6b1af2a78362c2ae2039"
+                     "0fdbc081367215d7cf2286bffe0bac59"),
+    "trisoup_ref_syntax": (("--refSyntax=1",
+                            f"--trisoupNodeSizeLog2={TRISOUP_LOG2}",
+                            "--attribute=color"), 1_762_312,
+                           "62eb4498d971666880d1e4e28398922c"
+                           "0c4ff8089d53af20b54f9e42609519a2"),
+}
+TRISOUP_EXACT_POINTS = 766_261   # both reconstructions, as the JAX CLI's
+TRISOUP_MAX_DISTANCE = 1 << TRISOUP_LOG2     # one node, Chebyshev
+# the numpy surface model: a cloud (19,811 unique points) that keeps its
+# two encodes and one decode near a minute on the host of an H100
+TRISOUP_V2_POINTS = 20_000
+TRISOUP_V2_DEPTH = 10
+TRISOUP_V2_BYTES = 104_970      # the JAX CLI's stream on that cloud
 
 KERNELS = {
     "fwd_blocks": ("raht_fwd_blocks", "raht_blocks.cu",
@@ -783,10 +831,31 @@ def _cli(args):
     return secs, out.getvalue()
 
 
+def _cli_process(args):
+    """Run the port's CLI as the command a user runs, in a process of
+    its own: (wall s of the process, its stdout)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "mpeg_pcc_tmc13_tpu_torch.runtime.cli",
+         *args], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=600)
+    secs = time.perf_counter() - t0
+    _check(res.returncode == 0,
+           f"the CLI process failed ({res.returncode}):\n{res.stderr}")
+    return secs, res.stdout
+
+
 def _cli_number(out, pattern):
     m = re.search(pattern, out)
     _check(m is not None, f"no {pattern!r} in the CLI's output")
     return m.group(1)
+
+
+def _cli_wall(out):
+    """The CLI's own "Processing time (wall)", seconds, as printed."""
+    return _cli_number(out, r"Processing time \(wall\): ([\d.]+)")
 
 
 def _attribute_bricks(path):
@@ -829,23 +898,11 @@ def _timed(module, name, secs):
         setattr(module, name, fn)
 
 
-def phase_k(device, uniq, depth, colors, smi):
-    """The port's CLI at the bench size, each geometry engine on the
-    default device of the run (on the card no --device is given)."""
-    from mpeg_pcc_tmc13_tpu_torch import host
-    from mpeg_pcc_tmc13_tpu_torch.models import attributes
+@contextlib.contextmanager
+def _analysis_devices(analysed):
+    """Append the torch device type of every ``engine="device"`` octree
+    analysis to ``analysed`` while the block runs."""
     from mpeg_pcc_tmc13_tpu_torch.ops import octree
-    from mpeg_pcc_tmc13_tpu_torch.ops import rans_lanes as L
-    from mpeg_pcc_tmc13_tpu_torch.utils import morton
-
-    extra = [] if device.type == "cuda" else [f"--device={device}"]
-    CLI_DIR.mkdir(parents=True, exist_ok=True)
-    src = CLI_DIR / "bench.ply"
-    host.ply.write(host.ply.PlyCloud(
-        positions=morton.decode(uniq).astype(np.float64), colors=colors),
-        str(src))
-    # spy: the torch device of every engine="device" analysis
-    analysed = []
     packed = octree.encode_analysis_packed
 
     def spy(codes, *a, **k):
@@ -853,8 +910,25 @@ def phase_k(device, uniq, depth, colors, smi):
         return packed(codes, *a, **k)
 
     octree.encode_analysis_packed = spy
-    runs = {}
     try:
+        yield
+    finally:
+        octree.encode_analysis_packed = packed
+
+
+def phase_k(device, uniq, depth, colors, smi):
+    """The port's CLI at the bench size, each geometry engine on the
+    default device of the run (on the card no --device is given)."""
+    from mpeg_pcc_tmc13_tpu_torch.models import attributes
+    from mpeg_pcc_tmc13_tpu_torch.ops import rans_lanes as L
+
+    extra = [] if device.type == "cuda" else [f"--device={device}"]
+    CLI_DIR.mkdir(parents=True, exist_ok=True)
+    src = CLI_DIR / "bench.ply"
+    _write_cloud(src, uniq, colors)
+    analysed = []
+    runs = {}
+    with _analysis_devices(analysed):
         for engine in ("native", "device", "rans"):
             bin_path = CLI_DIR / f"{engine}.bin"
             rec = CLI_DIR / f"{engine}.ply"
@@ -880,12 +954,10 @@ def phase_k(device, uniq, depth, colors, smi):
                 enc_launches=enc_launches, dec_launches=dec_launches)
             _line("k", engine=engine, points=uniq.size,
                   encode_s=f"{enc_s:.3f}",
-                  encode_cli_wall_s=_cli_number(
-                      enc_out, r"Processing time \(wall\): ([\d.]+)"),
+                  encode_cli_wall_s=_cli_wall(enc_out),
                   attr_encode_s=f"{attr_s['encode']:.3f}",
                   decode_s=f"{dec_s:.3f}",
-                  decode_cli_wall_s=_cli_number(
-                      dec_out, r"Processing time \(wall\): ([\d.]+)"),
+                  decode_cli_wall_s=_cli_wall(dec_out),
                   attr_decode_s=f"{attr_s['decode']:.3f}",
                   geom_bytes=_cli_number(
                       enc_out, r"positions bitstream size (\d+) B"),
@@ -897,8 +969,6 @@ def phase_k(device, uniq, depth, colors, smi):
                                                   separators=(",", ":")),
                   rans_launches_decode=json.dumps(dec_launches,
                                                   separators=(",", ":")))
-    finally:
-        octree.encode_analysis_packed = packed
 
     nat, dev, rans = runs["native"], runs["device"], runs["rans"]
     _check(dev.stream == nat.stream,
@@ -917,17 +987,9 @@ def phase_k(device, uniq, depth, colors, smi):
 
     # the rANS stream decoded by the command a user runs
     sub = CLI_DIR / "rans_subprocess.ply"
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
-    t0 = time.perf_counter()
-    res = subprocess.run(
-        [sys.executable, "-m", "mpeg_pcc_tmc13_tpu_torch.runtime.cli",
-         "--mode=1", f"--compressedStreamPath={CLI_DIR / 'rans.bin'}",
-         f"--reconstructedDataPath={sub}", *extra],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
-    sub_s = time.perf_counter() - t0
-    _check(res.returncode == 0,
-           f"the CLI process failed ({res.returncode}):\n{res.stderr}")
+    sub_s, sub_out = _cli_process(
+        ["--mode=1", f"--compressedStreamPath={CLI_DIR / 'rans.bin'}",
+         f"--reconstructedDataPath={sub}", *extra])
     _check(sub.read_bytes() == (CLI_DIR / "rans.ply").read_bytes(),
            "the CLI process decoded another PLY than the in-process one")
     _line("k", device_vs_native_stream="identical",
@@ -936,10 +998,228 @@ def phase_k(device, uniq, depth, colors, smi):
                             == rans.bricks else "differ"),
           rans_launches=json.dumps(total, separators=(",", ":")),
           subprocess_decode_s=f"{sub_s:.3f}",
-          subprocess_cli_wall_s=_cli_number(
-              res.stdout, r"Processing time \(wall\): ([\d.]+)"),
+          subprocess_cli_wall_s=_cli_wall(sub_out),
           subprocess_ply="identical", card=repr(smi))
     return total
+
+
+def _write_cloud(path, uniq, colors):
+    from mpeg_pcc_tmc13_tpu_torch import host
+    from mpeg_pcc_tmc13_tpu_torch.utils import morton
+    host.ply.write(host.ply.PlyCloud(
+        positions=morton.decode(uniq).astype(np.float64), colors=colors),
+        str(path))
+
+
+def _sha256(path):
+    import hashlib
+    return hashlib.sha256(path.read_bytes()).hexdigest()
+
+
+def _encode_and_decode_twice(tag, src, flags, extra):
+    """Encode ``src`` with ``flags`` in this process, decode the stream
+    here and in a process of its own (no --refSyntax: the family is read
+    from the SPS), and hold the two PLYs to each other.  Returns the
+    stream's path, the in-process PLY's path and the printed line's
+    timing and size fields."""
+    bin_path = CLI_DIR / f"{tag}.bin"
+    rec, sub = CLI_DIR / f"{tag}.ply", CLI_DIR / f"{tag}_subprocess.ply"
+    enc_s, enc_out = _cli(["--mode=0", f"--uncompressedDataPath={src}",
+                           f"--compressedStreamPath={bin_path}", *flags,
+                           *extra])
+    dec_s, dec_out = _cli(["--mode=1", f"--compressedStreamPath={bin_path}",
+                           f"--reconstructedDataPath={rec}", *extra])
+    sub_s, sub_out = _cli_process(
+        ["--mode=1", f"--compressedStreamPath={bin_path}",
+         f"--reconstructedDataPath={sub}", *extra])
+    _check(sub.read_bytes() == rec.read_bytes(),
+           f"{tag}: the CLI process decoded another PLY than this one")
+    return bin_path, rec, dict(
+        encode_cli_wall_s=_cli_wall(enc_out),
+        decode_cli_wall_s=_cli_wall(dec_out),
+        subprocess_cli_wall_s=_cli_wall(sub_out),
+        subprocess_s=f"{sub_s:.3f}",
+        geom_bytes=_cli_number(enc_out,
+                               r"positions bitstream size (\d+) B"),
+        color_bytes=_cli_number(enc_out, r"colors bitstream size (\d+) B"),
+        stream_bytes=bin_path.stat().st_size, sha256=_sha256(bin_path),
+        subprocess_ply="identical")
+
+
+def _check_pinned(tag, bin_path, size, sha):
+    _check(bin_path.stat().st_size == size and _sha256(bin_path) == sha,
+           f"{tag}: {bin_path.stat().st_size} B, sha256 "
+           f"{_sha256(bin_path)}; the JAX CLI writes {size} B, {sha}")
+
+
+def _max_chebyshev(points, source, device, limit):
+    """The largest Chebyshev distance from a row of ``points`` to its
+    nearest row of ``source`` (both (N, 3) non-negative integers below
+    2^20), exact: each ring of offsets in turn, by binary search in the
+    sorted source keys.  Fails if a point has no source point within
+    ``limit``."""
+    import torch
+
+    def keys(p):
+        p = p + limit
+        return (p[..., 0] << 42) | (p[..., 1] << 21) | p[..., 2]
+
+    src = torch.unique(keys(torch.as_tensor(source, device=device)))
+    left = torch.as_tensor(points, device=device)
+    worst = 0
+    for r in range(limit + 1):
+        if left.shape[0] == 0:
+            break
+        side = torch.arange(-r, r + 1, device=device)
+        ring = torch.cartesian_prod(side, side, side).reshape(-1, 3)
+        ring = ring[ring.abs().amax(dim=1) == r]
+        found = torch.zeros(left.shape[0], dtype=torch.bool, device=device)
+        step = max(1, (1 << 24) // left.shape[0])
+        for i in range(0, ring.shape[0], step):
+            k = keys(left[None, :, :] + ring[i:i + step, None, :])
+            at = torch.searchsorted(src, k).clamp(max=src.shape[0] - 1)
+            found |= (src[at] == k).any(dim=0)
+        if bool(found.any()):
+            worst = r
+        left = left[~found]
+    _check(left.shape[0] == 0,
+           f"{left.shape[0]} decoded points lie more than {limit} voxels "
+           f"from every source point")
+    return worst
+
+
+@contextlib.contextmanager
+def _spied(module, name, calls):
+    """Append ``(return value, seconds)`` of every call of
+    ``module.name`` to ``calls`` while the block runs."""
+    fn = getattr(module, name)
+
+    def spy(*a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        calls.append((out, time.perf_counter() - t0))
+        return out
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def phase_l(device, uniq, colors, smi, v2_points=TRISOUP_V2_POINTS,
+            v2_depth=TRISOUP_V2_DEPTH, pinned=True):
+    """The rest of the port's CLI: the tmc3 syntax family and trisoup
+    geometry.  ``pinned=False`` (a rehearsal on another cloud) skips the
+    comparisons with the JAX CLI's sizes, hashes and count."""
+    from mpeg_pcc_tmc13_tpu_torch import host
+    from mpeg_pcc_tmc13_tpu_torch.models import geometry_trisoup
+    from mpeg_pcc_tmc13_tpu_torch.ops import trisoup as trisoup_ops
+    from mpeg_pcc_tmc13_tpu_torch.runtime import cli
+    from mpeg_pcc_tmc13_tpu_torch.utils import morton
+
+    t0 = time.perf_counter()
+    extra = [] if device.type == "cuda" else [f"--device={device}"]
+    CLI_DIR.mkdir(parents=True, exist_ok=True)
+    src = CLI_DIR / "bench.ply"
+    _write_cloud(src, uniq, colors)
+    source = morton.decode(uniq)
+
+    # the tmc3 syntax family, full size: a host path, no device asked for
+    for tag, (flags, size, sha) in REF_SYNTAX_RUNS.items():
+        bin_path, rec, fields = _encode_and_decode_twice(tag, src, flags, [])
+        _check(cli.detect_ref_syntax(str(bin_path)),
+               f"{tag}: the stream is not of the tmc3 syntax family")
+        _decoded(rec, uniq)
+        if pinned:
+            _check_pinned(tag, bin_path, size, sha)
+        _line("l", run=tag, points=uniq.size, positions="unique_input",
+              **fields)
+
+    # trisoup through the reference-exact brick, full size
+    for tag, (flags, size, sha) in TRISOUP_EXACT_RUNS.items():
+        recons = []
+        with _spied(geometry_trisoup, "encode", recons):
+            bin_path, rec, fields = _encode_and_decode_twice(
+                tag, src, flags, [])
+        got = np.round(host.ply.read(str(rec)).positions).astype(np.int64)
+        if recons:       # the native-syntax brick: one slice, one call
+            _check(len(recons) == 1 and got.shape[0] == len(recons[0][0]),
+                   f"{tag}: decoded {got.shape[0]} points, the encoder "
+                   f"reconstructed {[len(r) for r, _ in recons]}")
+        if pinned:
+            _check_pinned(tag, bin_path, size, sha)
+            _check(got.shape[0] == TRISOUP_EXACT_POINTS,
+                   f"{tag}: decoded {got.shape[0]} points, not "
+                   f"{TRISOUP_EXACT_POINTS}")
+        worst = _max_chebyshev(got, source, device, TRISOUP_MAX_DISTANCE)
+        _line("l", run=tag, points=uniq.size, decoded_points=got.shape[0],
+              max_distance_voxels=worst, limit=TRISOUP_MAX_DISTANCE,
+              **fields)
+
+    # trisoup's numpy surface model on a smaller cloud, the octree
+    # front-end on the card and on the host engine
+    small, small_colors = bench_cloud(n=v2_points, depth=v2_depth)
+    small_src = CLI_DIR / "trisoup_v2.ply"
+    _write_cloud(small_src, small, small_colors)
+    analysed, runs = [], {}
+    with _analysis_devices(analysed):
+        for engine in ("device", "native"):
+            analysed.clear()
+            recons, surf_s = [], {}
+            bin_path = CLI_DIR / f"trisoup_v2_{engine}.bin"
+            with _spied(geometry_trisoup, "encode", recons), \
+                    _timed(trisoup_ops, "reconstruct", surf_s), \
+                    _timed(trisoup_ops, "determine_vertices", surf_s), \
+                    _timed(trisoup_ops, "edge_coder_features", surf_s):
+                _, enc_out = _cli(
+                    ["--mode=0", f"--uncompressedDataPath={small_src}",
+                     f"--compressedStreamPath={bin_path}",
+                     f"--trisoupNodeSizeLog2={TRISOUP_LOG2}",
+                     f"--geomEngine={engine}", "--attribute=color", *extra])
+            _check(len(recons) == 1, f"{len(recons)} trisoup bricks")
+            runs[engine] = SimpleNamespace(
+                stream=bin_path.read_bytes(), recon=recons[0][0],
+                analysed=list(analysed))
+            _line("l", run=f"trisoup_v2_{engine}", points=small.size,
+                  depth=v2_depth, encode_cli_wall_s=_cli_wall(enc_out),
+                  geometry_s=f"{recons[0][1]:.3f}",
+                  **{f"{k}_s": f"{v:.3f}" for k, v in surf_s.items()},
+                  reconstructed_points=len(recons[0][0]),
+                  stream_bytes=len(runs[engine].stream),
+                  analysis_devices=",".join(analysed) or "none")
+    dev, nat = runs["device"], runs["native"]
+    _check(dev.stream == nat.stream,
+           "the --geomEngine=device trisoup stream differs from the "
+           "native one")
+    _check(dev.analysed == [device.type] and not nat.analysed,
+           f"the trisoup octree front-end analysed on {dev.analysed}, not "
+           f"{device.type}")
+    if pinned:
+        _check(len(dev.stream) == TRISOUP_V2_BYTES,
+               f"trisoup_v2: {len(dev.stream)} B, the JAX CLI writes "
+               f"{TRISOUP_V2_BYTES} B")
+    decoded = []
+    rec = CLI_DIR / "trisoup_v2.ply.dec"
+    with _spied(geometry_trisoup, "decode", decoded):
+        _, dec_out = _cli(
+            ["--mode=1",
+             f"--compressedStreamPath={CLI_DIR / 'trisoup_v2_device.bin'}",
+             f"--reconstructedDataPath={rec}", *extra])
+    _check(len(decoded) == 1
+           and np.array_equal(decoded[0][0], dev.recon)
+           and np.array_equal(dev.recon, nat.recon),
+           "the trisoup decode differs from the encoder's reconstruction")
+    got = np.round(host.ply.read(str(rec)).positions).astype(np.int64)
+    worst = _max_chebyshev(got, morton.decode(small), device,
+                           TRISOUP_MAX_DISTANCE)
+    _line("l", run="trisoup_v2", device_vs_native_stream="identical",
+          decode="equals_encoder_reconstruction",
+          decode_cli_wall_s=_cli_wall(dec_out),
+          geometry_decode_s=f"{decoded[0][1]:.3f}",
+          decoded_points=got.shape[0], max_distance_voxels=worst,
+          limit=TRISOUP_MAX_DISTANCE,
+          phase_s=f"{time.perf_counter() - t0:.1f}", card=repr(smi))
 
 
 def _level_inputs(uniq, colors, depth, device):
@@ -1321,6 +1601,7 @@ def main() -> int:
     phase_i(device, uniq, BENCH_DEPTH)                         # (i)
     phase_j(device, uniq, BENCH_DEPTH, r.geom_payload)         # (j)
     phase_k(device, uniq, BENCH_DEPTH, colors, smi)            # (k)
+    phase_l(device, uniq, colors, smi)                         # (l)
     times, chain_ms = phase_f(device, uniq, BENCH_DEPTH,       # (f)
                               colors, rans, errs)
 

@@ -26,8 +26,17 @@ What is ported:
   ``runtime.decoder``, ``runtime.cli``, script ``tmc3-cuda``) with the
   host modules they run: the attribute codecs (``models.attr_raht``,
   ``attr_predlift``, ``attributes``), predictive and OBUF geometry,
-  quantisation, partitioning, recolouring, motion and levels of detail.
-  Trisoup geometry and the tmc3 syntax family are not ported yet.
+  quantisation, partitioning, recolouring, motion and levels of detail,
+* trisoup geometry (``models.geometry_trisoup`` over ``ops.trisoup``,
+  the one trisoup module, and ``ops.trisoup_ref``): the numpy surface
+  model behind the octree front-end of any engine, or the
+  reference-exact brick under ``--geomEngine=obuf``,
+* the tmc3 syntax family (``conformance``: encoder, decoder and
+  ``ref_hls`` over the native engine; ``--refSyntax=1`` in the CLI),
+  host code that asks for no device,
+* ``tools.ply_merge`` (merge frames tagged by ``frameindex``, split).
+
+Still to port: the multi-device layer (``parallel/``).
 
 The package stands alone: it imports neither jax nor anything of
 ``mpeg_pcc_tmc13_tpu``.  The host layer it needs from the reference
@@ -37,8 +46,8 @@ coder and bitstream syntax (``bitstream/``), PLY I/O, option parsing
 and timing (``utils/``), the point cloud and frame store, the numpy
 RAHT specs and their planner (``ops/raht.py``, ``raht_fp.py``, the
 planner in ``raht_fp_device.py``), the angular and coordinate helpers,
-the reference-syntax pieces the OBUF engine uses (``conformance/``) and
-the C++ of the native library (``native/``), which
+the tmc3-syntax codec (``conformance/``) and the C++ of the native
+library (``native/``, thirteen translation units), which
 ``bitstream.entropy`` builds with ``g++`` into ``build/tmc13_native/``
 on first import.  ``host`` re-exports what callers need from it.
 

@@ -52,7 +52,8 @@ _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "tmc13_native")
 # (the headers and .inc files they include are hashed with them)
 _SOURCES = ("entropy.cc", "octree.cc", "lod.cc", "recolour.cc",
             "predtree.cc", "attr_raht.cc", "obuf_ls.cc", "refcodec.cc",
-            "refpredgeom.cc")
+            "refpredgeom.cc", "refattr.cc", "refpredlift.cc",
+            "trisoup_ref.cc", "trisoup_geom.cc")
 # -ffp-contract=off: attr_raht.cc mirrors the numpy float64 spec
 # op-for-op; fused multiply-adds would change the last ulp and break
 # byte-identity between the native and Python coefficient streams.  No

@@ -16,8 +16,8 @@ This is the PyTorch + CUDA port's copy of
 bytes.  ``--device=<torch device>`` places the on-device geometry
 engines (``--geomEngine=device|rans``, and the decode of rANS bricks);
 unset, they take the current CUDA device and refuse to run without one.
-Trisoup geometry and the tmc3 syntax family (``--refSyntax=1``) are not
-ported yet and are refused.
+The host-only paths (``--refSyntax=1``, the host geometry engines, every
+attribute codec) need no device and ask for none.
 """
 
 from __future__ import annotations
@@ -38,9 +38,6 @@ from .. import __version__
 from ..utils.device import NoDeviceError
 from .decoder import FrameDecoder
 from .encoder import AttributeConfig, EncoderParams, FrameEncoder
-
-REF_SYNTAX_NOT_PORTED = ("the tmc3 syntax family (--refSyntax=1) is not "
-                         "ported yet: use mpeg_pcc_tmc13_tpu.runtime.cli")
 
 # Reference option names accepted without behavioural change.  Three
 # groups: (a) the framework's default behaviour already matches the
@@ -194,8 +191,8 @@ class Config:
         # options the user actually supplied (CLI or cfg file); any
         # other option keeps a default, which under --refSyntax=1 is
         # pinned to tmc3's option-table default (TMC3.cpp:632-1553)
-        # by the reference CLI's _apply_ref_syntax_defaults so a
-        # zero-flag encode matches tmc3 byte for byte
+        # by _apply_ref_syntax_defaults so a zero-flag encode matches
+        # tmc3 byte for byte
         self.explicit: set = set()
         # per --attribute snapshot of which sticky attribute options
         # the user set (parallel to params.attributes)
@@ -617,6 +614,271 @@ def _notice_accepted(cfg: Config) -> None:
         print(f"NOTE: options recorded without effect: {names}")
 
 
+# tmc3 encoder option-table defaults (TMC3.cpp:632-1553) that differ
+# from this framework's native-syntax defaults.  Under --refSyntax=1
+# any option the user did not set is pinned to the tmc3 default so a
+# zero-flag encode is byte-identical to a zero-flag tmc3 encode.
+_TMC3_ENCODE_DEFAULTS = (
+    ("planarEnabled", "1"),                    # TMC3.cpp:898
+    ("neighbourAvailBoundaryLog2", "0"),       # TMC3.cpp:872
+    ("adjacentChildContextualization", "1"),   # TMC3.cpp:890
+    ("inferredDirectCodingMode", "1"),         # TMC3.cpp:878
+    ("partitionMethod", "4"),                  # TMC3.cpp:781
+    ("sliceMinPoints", "550000"),              # TMC3.cpp:808
+    ("qtbtEnabled", "1"),                      # TMC3.cpp:849
+    ("maxNumQtBtBeforeOt", "4"),               # TMC3.cpp:853
+    ("predictionPeriod", "1"),                 # TMC3.cpp:1137
+)
+
+
+def _apply_ref_syntax_defaults(cfg: Config) -> None:
+    """Pin unset options to tmc3's defaults and replay the relevant
+    sanitizeEncoderOpts rules (TMC3.cpp:1624-2060) so --refSyntax=1
+    with no extra flags emits tmc3's zero-flag stream."""
+    for name, value in _TMC3_ENCODE_DEFAULTS:
+        if name not in cfg.explicit:
+            cfg.apply(name, value)
+    p = cfg.params
+    # planarModeIdcmUse defaults to -1: IDCM mode 1 is disabled
+    # (TMC3.cpp:1666-1669); modes >1 force the rate to full
+    if cfg.planar_idcm_use < 1 and p.idcm_mode == 1:
+        p.idcm_mode = 0
+        p.idcm = False
+    # the occupancy atlas gates adjacent-child contextualization
+    # (TMC3.cpp:2013-2023); neighbour_avail_log2 is clamped to 1
+    # (minus1=0) when the atlas is disabled
+    if cfg.neighbour_avail_log2 <= 1:
+        cfg.adjacent_child = False
+    # tmc3's per-attribute transformType default is Pred
+    # (TMC3.cpp:1290 AttributeEncoding::kPredictingTransform)
+    for i, a in enumerate(p.attributes):
+        if (i < len(cfg.attr_explicit)
+                and "transformType" not in cfg.attr_explicit[i]):
+            a.encoding = hls.AttributeEncoding.PRED
+
+
+def encode_sequence_ref_syntax(cfg: Config) -> int:
+    """Encode to the reference (tmc3-decodable) syntax via the
+    bit-exact conformance engine (geometry, and the first colour or
+    reflectance attribute)."""
+    _notice_accepted(cfg)
+    from ..conformance import encoder as refenc
+    from ..conformance import ref_hls
+    from ..utils.timing import Stopwatch
+    from ..ops import processing
+    p = cfg.params
+    # attribute coding: first configured color/reflectance attribute
+    # rides the conformance RAHT engine (native/refattr.cc)
+    attr_cfg = next(
+        (a for a in p.attributes
+         if a.encoding in (hls.AttributeEncoding.RAHT,
+                           hls.AttributeEncoding.PRED,
+                           hls.AttributeEncoding.LIFT)), None)
+    sw = Stopwatch().start()
+    frames = []
+    colors = [] if (attr_cfg and attr_cfg.label == "color") else None
+    refls = ([] if (attr_cfg and attr_cfg.label != "color"
+                    and colors is None) else None)
+    npts = 0
+    for i in range(cfg.frame_count):
+        sw.stop()   # ply read outside the clock (TMC3.cpp:2231)
+        path = ply.expand_num(cfg.uncompressed_path, cfg.first_frame + i)
+        cloud = ply.read(path)
+        pos = np.round(cloud.positions).astype(np.int64)
+        sw.start()
+        npts += pos.shape[0]
+        if p.geom_scale_num != 1 or p.geom_scale_den != 1:
+            pos = np.floor(pos * p.geom_scale_num / p.geom_scale_den
+                           + 0.5).astype(np.int64)
+        pos -= pos.min(axis=0).clip(max=0)     # keep non-negative
+        frames.append(pos)
+        if colors is not None:
+            rgb = np.asarray(cloud.colors, dtype=np.int64)
+            if cfg.convert_colourspace and attr_cfg.cicp_matrix == 8:
+                # YCgCo-R chroma is offset by 1<<bitdepth and coded
+                # one bit wider (colourspace.h:84-99, TMC3.cpp:1846)
+                ycc = processing.rgb_to_ycgcor(rgb)
+                off = 1 << attr_cfg.bitdepth
+                ycc[..., 1] += off
+                ycc[..., 2] += off
+                colors.append(ycc)
+            elif cfg.convert_colourspace and attr_cfg.cicp_matrix:
+                # BT.709 is the tmc3 default matrix (TMC3.cpp:1270)
+                colors.append(processing.rgb_to_ycbcr_bt709(rgb))
+            else:
+                # internal coding order is GBR (PCCPointSet3)
+                colors.append(rgb[:, [1, 2, 0]])
+        elif refls is not None:
+            refls.append(np.asarray(cloud.reflectances,
+                                    dtype=np.int64))
+        print(f"frame {cfg.first_frame + i}: {pos.shape[0]} points")
+    stream = refenc.encode_frames(
+        frames, unique_points=p.merge_duplicated_points,
+        planar=p.planar_enabled, qtbt=cfg.qtbt_enabled,
+        idcm=p.idcm_mode,
+        inter=p.inter_prediction,
+        global_motion=p.global_motion,
+        bi_prediction=bool(p.bi_prediction),
+        bi_prediction_period=max(p.bi_period, 1),
+        random_access_period=max(p.random_access_period, 1),
+        motion_block_size=tuple(
+            max(64, int(round(v * p.geom_scale_num / p.geom_scale_den)))
+            if v > 0 else 0 for v in p.motion_block_size),
+        motion_window_size=max(2, int(round(
+            p.motion_window_size * p.geom_scale_num
+            / p.geom_scale_den))),
+        predgeom=(p.geometry_codec == hls.GeometryCodecType.PREDICTIVE),
+        angular=bool(p.angular_enabled and p.laser_theta),
+        angular_head=tuple(p.angular_origin or (0, 0, 0)),
+        lasers_theta=p.laser_theta, lasers_z=p.laser_z,
+        lasers_num_phi=p.laser_npt,
+        max_points_per_slice=(cfg.slice_max_trisoup
+                              if cfg.slice_max_trisoup
+                              and p.trisoup_node_size_log2
+                              else 1_100_000),
+        trisoup_node_size_log2=p.trisoup_node_size_log2,
+        colors=colors, reflectances=refls,
+        attr_qp=attr_cfg.qp if attr_cfg else 34,
+        attr_qp_chroma_offset=(attr_cfg.qp_chroma_offset
+                               if attr_cfg else 0),
+        attr_bitdepth=((attr_cfg.bitdepth + 1)
+                       if (attr_cfg and colors is not None
+                           and cfg.convert_colourspace
+                           and attr_cfg.cicp_matrix == 8)
+                       else attr_cfg.bitdepth if attr_cfg else 8),
+        integer_haar=(attr_cfg.raht_integer_haar
+                      if attr_cfg else False),
+        attr_cicp_matrix=(attr_cfg.cicp_matrix
+                          if attr_cfg else 1),
+        bypass_no_update=cfg.bypass_no_update,
+        cabac_bypass=cfg.cabac_bypass,
+        attr_slice_rdo=cfg.attr_slice_rdo,
+        attr_inter_translation_threshold=(
+            cfg.attr_inter_translation_threshold),
+        adjacent_child=cfg.adjacent_child,
+        bitwise_occupancy=cfg.bitwise_occ,
+        neighbour_avail_boundary_log2=cfg.neighbour_avail_log2,
+        secondary_residual_disabled=cfg.secondary_residual_disabled,
+        azimuth_quantization=cfg.azimuth_quantization,
+        gps_overrides=cfg.ref_gps_overrides,
+        aps_overrides=cfg.ref_aps_overrides,
+        attr_aps=(refenc.derive_default_aps(
+            {hls.AttributeEncoding.RAHT: 0,
+             hls.AttributeEncoding.PRED: 1,
+             hls.AttributeEncoding.LIFT: 2}[attr_cfg.encoding],
+            attr_qp=attr_cfg.qp,
+            attr_qp_chroma_offset=attr_cfg.qp_chroma_offset,
+            integer_haar=attr_cfg.raht_integer_haar,
+            num_detail_levels_minus1=(
+                attr_cfg.ref_num_detail_levels_minus1),
+            lod_decimation_type=0,
+            dist2=attr_cfg.dist2,
+            inter_component_prediction=(
+                attr_cfg.inter_component_prediction),
+            last_component_prediction=(
+                attr_cfg.last_component_prediction),
+            attr_inter_prediction=attr_cfg.inter_pred,
+            raht_send_inter_filters=getattr(
+                attr_cfg, "raht_send_inter_filters", False))
+                  if attr_cfg else None))
+    # record the coding scale in the SPS-equivalent position: our
+    # decoder descales by sps.seq_scale (tmc3 treats it as seq unit)
+    if p.geom_scale_num != 1 or p.geom_scale_den != 1:
+        # rewrite the SPS with the coding scale
+        parts = []
+        for t, payload in ref_hls.iter_ref_tlv(stream):
+            if t == ref_hls.T_SPS:
+                sps = ref_hls.parse_sps(payload)
+                sps.seq_scale_num = p.geom_scale_num
+                sps.seq_scale_den = p.geom_scale_den
+                payload = ref_hls.write_sps(sps)
+            parts.append(ref_hls.write_ref_tlv(t, payload))
+        stream = b"".join(parts)
+    with open(cfg.compressed_path, "wb") as f:
+        f.write(stream)
+    sw.stop()
+    geom_b = sum(len(pl) for t, pl in ref_hls.iter_ref_tlv(stream)
+                 if t == ref_hls.T_GEOM_BRICK)
+    attr_b = sum(len(pl) for t, pl in ref_hls.iter_ref_tlv(stream)
+                 if t == ref_hls.T_ATTR_BRICK)
+    n = max(npts, 1)
+    print(f"positions bitstream size {geom_b} B "
+          f"({8 * geom_b / n:.3f} bpp)")
+    if attr_b:
+        label = ("colors" if colors is not None else "reflectances")
+        print(f"{label} bitstream size {attr_b} B "
+              f"({8 * attr_b / n:.3f} bpp)")
+    print(f"Total bitstream size {len(stream)} B")
+    print(f"Processing time (user): {sw.user:.3f} s")
+    print(f"Processing time (wall): {sw.wall:.3f} s")
+    return 0
+
+
+def decode_sequence_ref_syntax(cfg: Config) -> int:
+    """Decode a reference-syntax (tmc3) stream (geometry + RAHT
+    attributes)."""
+    from ..conformance import decoder as refdec
+    from ..conformance import ref_hls
+    from ..ops import processing
+    from ..utils.timing import Stopwatch
+    sw = Stopwatch().start()
+    data = open(cfg.compressed_path, "rb").read()
+    frames, attrs = refdec.decode_stream(data, want_attrs=True)
+    # descale by the signalled sequence scale; colour handling needs
+    # the attribute label (colour vs reflectance)
+    scale = (1.0, 1.0)
+    attr_labels = []
+    cicp = None
+    for t, payload in ref_hls.iter_ref_tlv(data):
+        if t == ref_hls.T_SPS:
+            sps = ref_hls.parse_sps(payload)
+            scale = (float(sps.seq_scale_num),
+                     float(sps.seq_scale_den))
+            attr_labels = list(sps.attr_labels or [])
+            if sps.attr_cicp_matrix:
+                cicp = sps.attr_cicp_matrix[0]
+            break
+    is_colour = bool(attr_labels) and attr_labels[0] == 0
+    for i, pos in enumerate(frames):
+        out = pos.astype(np.float64)
+        if scale != (1.0, 1.0):
+            out = out * (scale[1] / scale[0])
+        col = refl = None
+        a = attrs[i] if attrs and i < len(attrs) else None
+        if a is not None and is_colour:
+            if cfg.convert_colourspace and cicp == 8:
+                # signalled bitdepth is chroma width (bitdepth+1);
+                # the offset is 1 << (true bitdepth)
+                bd = (sps.attr_bitdepths[0] - 1
+                      if sps.attr_bitdepths else 8)
+                ycc = a.astype(np.int64)
+                ycc[..., 1] -= 1 << bd
+                ycc[..., 2] -= 1 << bd
+                col = processing.ycgcor_to_rgb(ycc, bitdepth=bd)
+            elif cfg.convert_colourspace and cicp:
+                col = processing.ycbcr_bt709_to_rgb(
+                    a.astype(np.int64), bitdepth=8)
+            else:
+                # internal GBR -> ply RGB
+                col = np.asarray(a)[:, [2, 0, 1]]
+            col = np.asarray(col, dtype=np.uint8)
+        elif a is not None:
+            refl = np.asarray(a[:, 0], dtype=np.uint16)
+        sw.stop()   # ply write outside the clock (TMC3.cpp:2437)
+        if cfg.reconstructed_path:
+            path = ply.expand_num(cfg.reconstructed_path,
+                                  cfg.first_frame + i)
+            ply.write(ply.PlyCloud(positions=out, colors=col,
+                                   reflectances=refl), path,
+                      ascii=not cfg.output_binary_ply)
+        sw.start()
+        print(f"frame {cfg.first_frame + i}: {pos.shape[0]} points")
+    sw.stop()
+    print(f"Processing time (user): {sw.user:.3f} s")
+    print(f"Processing time (wall): {sw.wall:.3f} s")
+    return 0
+
+
 def encode_sequence(cfg: Config) -> int:
     _notice_accepted(cfg)
     from ..bitstream.tlv import PayloadType
@@ -726,10 +988,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     if cfg.mode != 0 and cfg.ref_syntax is None:
         cfg.ref_syntax = detect_ref_syntax(cfg.compressed_path)
     try:
-        if cfg.ref_syntax:
-            raise NotImplementedError(REF_SYNTAX_NOT_PORTED)
         if cfg.mode == 0:
+            if cfg.ref_syntax:
+                _apply_ref_syntax_defaults(cfg)
+                return encode_sequence_ref_syntax(cfg)
             return encode_sequence(cfg)
+        if cfg.ref_syntax:
+            return decode_sequence_ref_syntax(cfg)
         return decode_sequence(cfg)
     except (NotImplementedError, NoDeviceError) as e:
         print(f"error: {e}", file=sys.stderr)

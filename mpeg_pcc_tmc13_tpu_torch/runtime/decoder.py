@@ -20,9 +20,8 @@ from ..models import pointcloud as pc
 from .framestore import FrameStore
 
 from ..models import attributes as attr_model
-from ..models import geometry_octree, geometry_predictive
+from ..models import geometry_octree, geometry_predictive, geometry_trisoup
 from ..ops import processing
-from .encoder import TRISOUP_NOT_PORTED
 
 
 def _grid_positions(local: np.ndarray,
@@ -84,6 +83,7 @@ class FrameDecoder:
         self._slices: List[_SliceState] = []
         self._frame_ctr_lsb: Optional[int] = None
         self._geom_ctx: Optional[geometry_octree.OctreeContexts] = None
+        self._trisoup_ctx: Optional[geometry_trisoup.TrisoupContexts] = None
         self._predgeom_ctx: Optional[
             geometry_predictive.PredGeomContexts] = None
         self._attr_ctx: Dict[int, attr_model.AttributeContexts] = {}
@@ -105,9 +105,6 @@ class FrameDecoder:
             self.active_sps = s
         elif t == PayloadType.GEOMETRY_PARAMETER_SET:
             g = hls.GeometryParameterSet.parse(buf.data)
-            if (g.codec_type == hls.GeometryCodecType.TRISOUP
-                    and g.trisoup_node_size_log2 > 0):
-                raise NotImplementedError(TRISOUP_NOT_PORTED)
             self.gps[g.gps_id] = g
         elif t == PayloadType.ATTRIBUTE_PARAMETER_SET:
             a = hls.AttributeParameterSet.parse(buf.data)
@@ -181,6 +178,7 @@ class FrameDecoder:
         continuing = gbh.entropy_continuation and self._geom_ctx is not None
         if not continuing:
             self._geom_ctx = geometry_octree.OctreeContexts()
+            self._trisoup_ctx = geometry_trisoup.TrisoupContexts()
             self._predgeom_ctx = geometry_predictive.PredGeomContexts()
             self._attr_ctx = {i: attr_model.AttributeContexts()
                               for i in self.aps}
@@ -258,7 +256,19 @@ class FrameDecoder:
             return
         stream = streams[0]
         dec = entropy.RangeDecoder(stream)
-        if gps.codec_type == hls.GeometryCodecType.PREDICTIVE:
+        if (gps.codec_type == hls.GeometryCodecType.TRISOUP
+                and gps.trisoup_node_size_log2 > 0):
+            local = geometry_trisoup.decode(
+                gbh.root_node_size_log2, gps.trisoup_node_size_log2, dec,
+                self._geom_ctx, self._trisoup_ctx,
+                max_nodes=gbh.num_points, ctx_mode=ctx_mode,
+                face_vertices=gps.trisoup_face_vertex_enabled,
+                halo=gps.trisoup_halo_enabled,
+                centroid=gps.trisoup_centroid_enabled,
+                bbox_max=(np.asarray(gbh.slice_whd, dtype=np.int64) - 1
+                          if any(gbh.slice_whd) else None),
+                obuf_gps=(gps if gps.obuf_engine else None))
+        elif gps.codec_type == hls.GeometryCodecType.PREDICTIVE:
             ref_pos = None
             if gbh.is_inter:
                 ref_pos = self._ref_points_for_gbh(gbh)

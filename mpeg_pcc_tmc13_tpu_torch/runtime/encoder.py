@@ -21,16 +21,13 @@ from ..models.pointcloud import PointCloud
 from .framestore import FrameStore
 
 from ..models import attributes as attr_model
-from ..models import geometry_octree, geometry_predictive
+from ..models import geometry_octree, geometry_predictive, geometry_trisoup
 from ..ops import motion as motion_ops
 from ..ops import partition as partition_ops
 from ..ops import processing
 from ..ops import recolour as recolour_ops
 from ..utils import morton as morton_ops
 from ..utils.device import NoDeviceError
-
-TRISOUP_NOT_PORTED = ("trisoup geometry (trisoupNodeSizeLog2 > 0) is not "
-                      "ported yet: use mpeg_pcc_tmc13_tpu.runtime.cli")
 
 
 @dataclass
@@ -243,9 +240,6 @@ class FrameEncoder:
     """Sequence-scoped encoder state + per-frame compress()."""
 
     def __init__(self, params: EncoderParams):
-        if (params.geometry_codec == hls.GeometryCodecType.TRISOUP
-                and params.trisoup_node_size_log2 > 0):
-            raise NotImplementedError(TRISOUP_NOT_PORTED)
         self.params = params
         # Angular predictive geometry determines spherical positions
         # from the input; quantising the input would disturb them.
@@ -266,6 +260,7 @@ class FrameEncoder:
         self.frame_ctr = 0
         self._slice_id = 0
         self._geom_ctx: Optional[geometry_octree.OctreeContexts] = None
+        self._trisoup_ctx: Optional[geometry_trisoup.TrisoupContexts] = None
         self._pending_param_updates: List[
             hls.AttributeParamInventory] = []
         self._attr_ctx: Dict[int, attr_model.AttributeContexts] = {}
@@ -643,6 +638,30 @@ class FrameEncoder:
         self._attr_acc = []
         self._geom_acc = []
         slices = self._partition(qcloud, out)
+        # trisoup slice padding: neighbouring slices' points near each
+        # slice's boundary join its vertex estimation (reference
+        # pointIndexesPadding, encoder.cpp:480-494)
+        pads = [None] * len(slices)
+        if (self.gps.codec_type == hls.GeometryCodecType.TRISOUP
+                and len(slices) > 1):
+            allp = qcloud.positions.astype(np.int64)
+            all_codes = morton_ops.encode(allp)
+            margin = 1 << self.gps.trisoup_node_size_log2
+            for i, sc in enumerate(slices):
+                lo, hi = sc.bbox()
+                lo = np.asarray(lo, dtype=np.int64) - margin
+                hi = np.asarray(hi, dtype=np.int64) + margin
+                inb = np.all((allp >= lo) & (allp <= hi), axis=1)
+                # exclude the slice's own points (true membership,
+                # not bbox: Morton spans interleave spatially)
+                sown = np.sort(morton_ops.encode(
+                    sc.positions.astype(np.int64)))
+                ins = np.searchsorted(sown, all_codes)
+                ins = np.minimum(ins, sown.size - 1)
+                own = sown[ins] == all_codes
+                sel = inb & ~own
+                if sel.any():
+                    pads[i] = allp[sel]
         use_par = ((p.parallel_slices > 1 or p.shard_devices > 1)
                    and len(slices) > 1
                    and not p.entropy_continuation and not keep_ctx)
@@ -679,7 +698,8 @@ class FrameEncoder:
                 def run():
                     w._compress_slice(slices[i], frame_ctr_lsb,
                                       bufs.append, ctr=ctr, refs=refs,
-                                      keep_ctx=False)
+                                      keep_ctx=False,
+                                      pad_positions=pads[i])
                 if shard_devs is not None:
                     # the current CUDA device is per thread: the device
                     # engines' default (utils/device.resolve) follows it
@@ -702,13 +722,14 @@ class FrameEncoder:
                 self._geom_acc.extend(gacc)
             self._slice_id = base_id + len(slices)
         else:
-            for scloud in slices:
+            for i, scloud in enumerate(slices):
                 self._compress_slice(scloud, frame_ctr_lsb, out,
                                      ctr=ctr, refs=refs,
-                                     keep_ctx=keep_ctx)
+                                     keep_ctx=keep_ctx,
+                                     pad_positions=pads[i])
                 keep_ctx = p.entropy_continuation
         # reference store = what the DECODER reconstructs (matters for
-        # in-tree quantisation where it differs from input);
+        # in-tree quantisation / trisoup where they differ from input);
         # insertion-age eviction shared with the decoder (framestore.py)
         attrs = None
         if self._attr_acc:
@@ -756,7 +777,8 @@ class FrameEncoder:
     #    encoder.cpp:924) --------------------------------------------
     def _compress_slice(self, cloud: PointCloud, frame_ctr_lsb: int,
                         out: Callable[[PayloadBuffer], None], ctr: int = 0,
-                        refs=(), keep_ctx: Optional[bool] = None):
+                        refs=(), keep_ctx: Optional[bool] = None,
+                        pad_positions: np.ndarray = None):
         p = self.params
         refs = list(refs)
         gm = refs[0][1] if refs else None   # primary-ref motion
@@ -794,6 +816,7 @@ class FrameEncoder:
         continuing = keep_ctx and self._geom_ctx is not None
         if not continuing:
             self._geom_ctx = geometry_octree.OctreeContexts()
+            self._trisoup_ctx = geometry_trisoup.TrisoupContexts()
             self._predgeom_ctx = geometry_predictive.PredGeomContexts()
             self._attr_ctx = {
                 i: attr_model.AttributeContexts()
@@ -805,10 +828,12 @@ class FrameEncoder:
                     else octree_ops.CTX_MODE_PARENT)
         enc = entropy.RangeEncoder()
         # 'obuf' is a brick-payload engine; the fallback paths (inter,
-        # multistream) use the auto-selected native engine
+        # trisoup, multistream) use the auto-selected native engine
         eng = "auto" if p.engine in ("obuf", "rans") else p.engine
+        trisoup = (self.gps.codec_type == hls.GeometryCodecType.TRISOUP
+                   and self.gps.trisoup_node_size_log2 > 0)
         multistream = (p.num_entropy_streams > 1 and gm is None
-                       and self.gps.unique_points
+                       and self.gps.unique_points and not trisoup
                        and self.gps.codec_type
                        == hls.GeometryCodecType.OCTREE)
         # per-node geometry QP (reference calculateNodeQps): derive a
@@ -820,7 +845,7 @@ class FrameEncoder:
         if ((p.geom_qp_octree_depth > 0
              or p.geom_qp_octree_size_log2 > 0)
                 and self.gps.codec_type == hls.GeometryCodecType.OCTREE
-                and not multistream and not refs
+                and not trisoup and not multistream and not refs
                 and not self.gps.obuf_engine and local.size):
             d = (p.geom_qp_octree_depth if p.geom_qp_octree_depth > 0
                  else max(depth - p.geom_qp_octree_size_log2, 1))
@@ -839,9 +864,27 @@ class FrameEncoder:
                     sp = sh[inv]
                     local = (local >> sp[:, None]) << sp[:, None]
                 node_shifts = sh
+        recon_local = None
         order = None
         lpu_z0 = lpu_thr = 0
-        if self.gps.codec_type == hls.GeometryCodecType.PREDICTIVE:
+        slice_whd = (local.max(axis=0) + 1 if local.size
+                     else np.ones(3, dtype=np.int64))
+        if trisoup:
+            pad_local = (np.asarray(pad_positions, dtype=np.int64)
+                         - slice_origin
+                         if pad_positions is not None else None)
+            recon_local = geometry_trisoup.encode(
+                local, depth, self.gps.trisoup_node_size_log2, enc,
+                self._geom_ctx, self._trisoup_ctx,
+                engine=eng, ctx_mode=ctx_mode,
+                face_vertices=self.gps.trisoup_face_vertex_enabled,
+                halo=self.gps.trisoup_halo_enabled,
+                centroid=self.gps.trisoup_centroid_enabled,
+                pad_points=pad_local,
+                bbox_max=np.asarray(slice_whd) - 1,
+                obuf_gps=(self.gps if self.gps.obuf_engine else None),
+                device=p.device)
+        elif self.gps.codec_type == hls.GeometryCodecType.PREDICTIVE:
             ref_pos = self._ref_points_for_slice(refs, slice_origin,
                                                  depth)
             lasers = None
@@ -953,7 +996,17 @@ class FrameEncoder:
         if not multistream:
             streams = [enc.get_bytes()]
 
-        num_points = cloud.count
+        if trisoup:
+            # num_points doubles as the decoder's octree-node capacity
+            # AND the sampling-loop point budget of the v2 surface
+            # model (reference geom_num_points, used by the automatic
+            # sub-sampling loop, geometry_trisoup_encoder.cpp:210-237)
+            s = min(self.gps.trisoup_node_size_log2, depth)
+            codes_u = np.unique(morton_ops.encode(local))
+            n_nodes = int(np.unique(codes_u >> (3 * s)).size)
+            num_points = max(int(codes_u.size), n_nodes)
+        else:
+            num_points = cloud.count
         ident = ((65536, 0, 0, 0, 65536, 0, 0, 0, 65536), (0, 0, 0))
 
         def gm_tuple(g):
@@ -983,6 +1036,8 @@ class FrameEncoder:
             slice_id=self._slice_id,
             frame_ctr_lsb=frame_ctr_lsb,
             slice_origin=tuple(int(v) for v in np.asarray(slice_origin)),
+            slice_whd=(tuple(int(v) for v in np.asarray(slice_whd))
+                       if trisoup else (0, 0, 0)),
             root_node_size_log2=depth,
             axis_bits=axis_bits,
             num_points=num_points,
@@ -995,7 +1050,9 @@ class FrameEncoder:
 
         # decoder-equivalent reconstructed grid positions of this slice
         from ..utils import morton as morton_mod
-        if self.gps.codec_type == hls.GeometryCodecType.PREDICTIVE:
+        if trisoup:
+            rec = recon_local
+        elif self.gps.codec_type == hls.GeometryCodecType.PREDICTIVE:
             rec = local
         elif self.gps.unique_points:
             rec = morton_mod.decode(np.unique(morton_mod.encode(local)))
@@ -1027,19 +1084,25 @@ class FrameEncoder:
         if not self.aps:
             coded = None
             dec_positions = None
-        elif qshift or geom_boxes or node_shifts is not None:
+        elif trisoup or qshift or geom_boxes \
+                or node_shifts is not None:
             # geometry changed: transfer attributes onto the decoded
             # positions (reference recolour, encoder.cpp:1031-1037)
             from ..ops import recolour as recolour_ops
             from ..utils import morton as morton_mod
-            dec_positions = morton_mod.decode(
-                np.unique(morton_mod.encode(local)))
-            src = PointCloud(
-                cloud.positions.astype(np.int64) - slice_origin,
-                cloud.colors, cloud.reflectances)
-            coded = recolour_ops.recolour(
-                src, dec_positions, source_scale_num=1,
-                source_scale_den=1 << qshift)
+            if trisoup:
+                src = PointCloud(local, cloud.colors, cloud.reflectances)
+                coded = recolour_ops.recolour(src, recon_local)
+                dec_positions = recon_local
+            else:
+                dec_positions = morton_mod.decode(
+                    np.unique(morton_mod.encode(local)))
+                src = PointCloud(
+                    cloud.positions.astype(np.int64) - slice_origin,
+                    cloud.colors, cloud.reflectances)
+                coded = recolour_ops.recolour(
+                    src, dec_positions, source_scale_num=1,
+                    source_scale_den=1 << qshift)
         else:
             # decoded-order positions for the attribute transforms
             coded = cloud.take(order)

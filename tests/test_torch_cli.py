@@ -7,7 +7,8 @@ host) and decode the streams.  The ``.bin`` files must be byte-identical
 and the decoded PLYs identical: tolerance 0.  Beside the parity runs:
 the depth-21 rANS round trip (held to the input, the reference engine
 is wrong there), entropy continuation with contexts carried across from
-the JAX encoder, and the refusals (no card, trisoup, ``--refSyntax``).
+the JAX encoder, and the refusals (no card).  The tmc3 syntax family
+(``--refSyntax=1``) has its own file, tests/test_torch_refsyntax.py.
 """
 
 import io
@@ -121,6 +122,16 @@ FLAG_SETS = {
                          "--randomAccessPeriod=2", "--globalMotionEnabled=1",
                          "--attrInterPredictionEnabled=1",
                          "--attribute=color"],
+    # trisoup geometry, native syntax: the numpy surface model, the
+    # reference-exact brick, the octree front-end on the device engine,
+    # and three slices (the seam padding runs)
+    "trisoup": ["--trisoupNodeSizeLog2=2", "--attribute=color"],
+    "trisoup_obuf": ["--trisoupNodeSizeLog2=2", "--geomEngine=obuf",
+                     "--attribute=color"],
+    "trisoup_device": ["--trisoupNodeSizeLog2=2", "--geomEngine=device",
+                       "--attribute=color"],
+    "trisoup_slices": ["--trisoupNodeSizeLog2=2",
+                       "--sliceMaxPointsTrisoup=1000", "--attribute=color"],
 }
 
 
@@ -134,16 +145,30 @@ def test_cli_matches_jax(name, frames, tmp_path):
     assert bin_t == bin_j
     gps, bricks = _geometry_units(bin_t)
     assert gps.rans_engine == (name == "rans")
-    assert gps.obuf_engine == (name == "obuf")
+    assert gps.obuf_engine == (name in ("obuf", "trisoup_obuf"))
+    assert (gps.codec_type == hls.GeometryCodecType.TRISOUP) == \
+        name.startswith("trisoup")
     assert any(g.is_inter for g in bricks) == (name == "inter_two_frames")
     assert (len(bricks) > 1) == (name in ("parallel_slices",
-                                          "inter_two_frames"))
+                                          "inter_two_frames",
+                                          "trisoup_slices"))
     nframes = 2 if "--frameCount=2" in flags else 1
     for i in range(nframes):
         a = (tmp_path / (rec_t.name % i)).read_bytes()
         b = (tmp_path / (rec_j.name % i)).read_bytes()
         assert a == b, f"frame {i}"
     assert not (tmp_path / (rec_t.name % nframes)).exists()
+    if name.startswith("trisoup"):
+        # cross decode: each CLI decodes the other's stream file
+        for cli, stream, tag, extra in (
+                (tcli, "j.bin", "tj", ["--device=cpu"]),
+                (jcli, "t.bin", "jt", [])):
+            _run(cli, ["--mode=1",
+                       f"--compressedStreamPath={tmp_path / stream}",
+                       f"--reconstructedDataPath={tmp_path / tag}.ply",
+                       *extra])
+            assert (tmp_path / f"{tag}.ply").read_bytes() == \
+                (tmp_path / (rec_j.name % 0)).read_bytes()
 
 
 def _uniq_rows(pos):
@@ -244,30 +269,26 @@ def test_shard_devices_refuses_without_cuda(no_cuda, frames):
         enc.compress(cloud, lambda b: None)
 
 
-def test_trisoup_and_ref_syntax_not_ported(frames, tmp_path, capsys):
-    """Trisoup (encode, and decode of a reference trisoup stream) and
-    the tmc3 syntax family (encode, and decode of a reference stream)
-    are refused with 'not ported yet' and a non-zero exit."""
+def test_trisoup_and_ref_syntax_not_ported(frames, tmp_path):
+    """Keeps its name from when both were refused.  Now: the command
+    line a user runs takes trisoup and ``--refSyntax=1``, decodes both
+    streams with no flag, and the refusal strings are gone."""
+    assert not hasattr(tcli, "REF_SYNTAX_NOT_PORTED")
+    assert not hasattr(tenc, "TRISOUP_NOT_PORTED")
     src = frames / "f0000.ply"
-    for flags, tag in ((["--trisoupNodeSizeLog2=3"], "trisoup"),
-                       (["--refSyntax=1"], "ref")):
-        out = tmp_path / f"{tag}.bin"
-        args = ["--mode=0", f"--uncompressedDataPath={src}",
-                f"--compressedStreamPath={out}", *flags]
-        assert tcli.main(args) == 1
-        assert "not ported yet" in capsys.readouterr().err
-        _run(jcli, args)
-        assert tcli.main(["--mode=1", f"--compressedStreamPath={out}",
-                          f"--reconstructedDataPath={tmp_path / 'r.ply'}",
-                          "--device=cpu"]) == 1
-        assert "not ported yet" in capsys.readouterr().err
-    # the command line a user runs exits non-zero too
     env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run(
-        [sys.executable, "-m", "mpeg_pcc_tmc13_tpu_torch.runtime.cli",
-         "--mode=0", f"--uncompressedDataPath={src}",
-         f"--compressedStreamPath={tmp_path / 's.bin'}",
-         "--trisoupNodeSizeLog2=3"],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
-    assert res.returncode != 0
-    assert "not ported yet" in res.stderr
+    for flags, tag in ((["--trisoupNodeSizeLog2=3"], "trisoup"),
+                       (["--refSyntax=1", "--attribute=color"], "ref")):
+        out, rec = tmp_path / f"{tag}.bin", tmp_path / f"{tag}.ply"
+        for args in (["--mode=0", f"--uncompressedDataPath={src}",
+                      f"--compressedStreamPath={out}", *flags],
+                     ["--mode=1", f"--compressedStreamPath={out}",
+                      f"--reconstructedDataPath={rec}"]):
+            res = subprocess.run(
+                [sys.executable, "-m",
+                 "mpeg_pcc_tmc13_tpu_torch.runtime.cli", *args],
+                cwd=REPO, env=env, capture_output=True, text=True,
+                timeout=300)
+            assert res.returncode == 0, res.stderr[-2000:]
+            assert "not ported" not in res.stderr
+        assert ply.read(str(rec)).positions.shape[0] > 0

@@ -173,7 +173,10 @@ _JAX_BLOCKED = textwrap.dedent("""
 
 # the flag sets of tests/test_torch_cli.py run with the reference blocked
 _BLOCKED_CLI_SETS = ("raht", "aps_knobs_pred_lod", "obuf", "predictive",
-                     "rans", "inter_two_frames")
+                     "rans", "inter_two_frames", "trisoup")
+# and one of the tmc3 syntax family (tests/test_torch_refsyntax.py)
+_BLOCKED_REF_SYNTAX = {"ref_syntax_raht": [
+    "--refSyntax=1", "--transformType=0", "--qp=22", "--attribute=color"]}
 
 
 def test_port_runs_with_jax_blocked(tmp_path):
@@ -188,6 +191,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
     _write_frame(frames / "f0000.ply", 5)
     _write_frame(frames / "f0001.ply", 5, shift=3)
     sets = {k: FLAG_SETS[k] for k in _BLOCKED_CLI_SETS}
+    sets.update(_BLOCKED_REF_SYNTAX)
     out = tmp_path / "port"
     out.mkdir()
     env = dict(os.environ, PYTHONPATH=REPO)

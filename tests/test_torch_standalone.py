@@ -229,12 +229,34 @@ def test_entry_point_needs_a_device(name, monkeypatch):
 
 
 def test_library_symbols_are_bound_by_name():
-    """Every entry point the port binds is defined by its own library;
-    none of the reference-syntax units left out of it is."""
+    """Every entry point the port binds is defined by its own library,
+    those of the tmc3-syntax and trisoup units (``refattr.cc``,
+    ``refpredlift.cc``, ``trisoup_ref.cc``, ``trisoup_geom.cc``) too:
+    thirteen units, as the reference links."""
+    assert len(tentropy._SOURCES) == 13
     lib = ctypes.CDLL(tentropy.LIB_PATH)
     for sym in ("rce_new", "oct_encode", "raht_encode_fp", "knn_float",
                 "lod_assign_dist2", "obufls_encode_octree",
-                "tmc13ref_decode_octree_intra", "tmc13_div_approx"):
+                "tmc13ref_decode_octree_intra", "tmc13_div_approx",
+                "tmc13ref_decode_raht_attr", "tmc13ref_isqrt",
+                "tmc13ref_decode_predlift", "tmc13ref_encode_predlift",
+                "tsgeom_open",
+                "tsref_open"):
         assert hasattr(lib, sym), sym
-    for sym in ("tmc13ref_decode_raht_attr", "tsgeom_open", "tsref_open"):
-        assert not hasattr(lib, sym), sym
+
+
+def test_conformance_load_binds_the_ports_library(monkeypatch):
+    """``conformance.decoder._load`` hands out the port's own library,
+    runs no ``make``, and raises when the library did not build."""
+    from mpeg_pcc_tmc13_tpu.conformance import decoder as jdec
+    from mpeg_pcc_tmc13_tpu_torch.conformance import decoder as tdec
+    lib = tdec._load()
+    assert lib is tentropy._LIB
+    assert lib._name == tentropy.LIB_PATH != jdec._SO_PATH
+    assert lib.tsref_open.restype is ctypes.c_void_p
+    assert lib.tsgeom_open.restype is ctypes.c_void_p
+    assert not hasattr(tdec, "subprocess")
+    monkeypatch.setattr(tdec, "_lib", None)
+    monkeypatch.setattr(tentropy, "_LIB", None)
+    with pytest.raises(RuntimeError, match="did not build"):
+        tdec._load()
