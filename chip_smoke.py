@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's main path (``mpeg_pcc_tmc13_tpu_torch``) once on
-``cuda:0`` at the bench size, one phase per printed line:
+``cuda:0`` ((m): on every visible card) at the bench size, one phase per
+printed line:
 
   (a) device identity: torch's device name and nvidia-smi's name and
       power limit (the nvidia-smi line is printed on its own),
@@ -59,6 +60,21 @@ Drives the port's main path (``mpeg_pcc_tmc13_tpu_torch``) once on
       ``--geomEngine=device`` (the octree front-end analysed on the
       card) and ``native``: identical streams, and the decode equal to
       the encoder's reconstruction,
+  (m) the multi-device layer (``parallel/``) on a mesh of every visible
+      card, the bench cloud cut into 8 slices, the launch counts taken
+      over (m1)-(m7): (m1) the sharded analysis, each slice equal to
+      ``encode_analysis`` and the histogram to the host sum; (m2) the
+      sharded codec round trip (bytes equal to the host engine's, the
+      cloud back); (m3) the inter analysis against the cloud moved one
+      voxel, every level equal to ``pred_occupancy_np``; (m4) the
+      fixed-point block stage on the float lane's 1,825,667 blocks with
+      Q13 values from a seed, ``raht_fwd_blocks_int`` equal to its plain
+      version and a sample to ``raht_fp``'s pair law; (m5) B1 on every
+      device equal to its plain version; (m6) the frame codec placed
+      slice by slice with (d)'s colours, geometry equal to the host
+      engine's, colour to ``forward_predicted_fp``'s, decoded codes to the
+      input; (m7) ``dryrun_multichip``; then ``raht_fwd_blocks_int``
+      timed at (m4)'s shapes,
   (f) timing: the stage times of a second (warm) round trip, and each
       kernel against its plain version at the shapes of (d) and (g):
       the pass through the wrappers (CUDA events), its device time (the
@@ -156,7 +172,12 @@ KERNELS = {
                     "mpeg_pcc_tmc13_tpu/ops/octree_rans.py:264"),
     "decode_level": ("rans_decode_level", "rans_lanes.cu",
                      "mpeg_pcc_tmc13_tpu/ops/octree_rans.py:353"),
+    "fwd_blocks_int": ("raht_fwd_blocks_int", "raht_fp_blocks.cu",
+                       "mpeg_pcc_tmc13_tpu/ops/raht_fp_device.py:303"),
 }
+MESH_SLICES = 8                 # (m): the bench cloud cut into 8 slices
+MESH_VALUE_SEED = 8             # (m4): its Q13 values
+PAIR_LAW_SAMPLE = 4096          # (m4): blocks held to raht_fp's pair law
 
 
 def _line(tag, **kv):
@@ -1222,6 +1243,280 @@ def phase_l(device, uniq, colors, smi, v2_points=TRISOUP_V2_POINTS,
           phase_s=f"{time.perf_counter() - t0:.1f}", card=repr(smi))
 
 
+def _pair_law(v, w):
+    """The fixed-point butterfly of (B, 8, C) int64 blocks by
+    ``raht_fp``'s pair law (the host spec's ``ab_q15`` per merged pair,
+    as tests/test_parallel.py:95-120 applies it), in numpy: (dc, acz, acy,
+    acx)."""
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp
+    half = 1 << (raht_fp.QA - 1)
+
+    def stage(v, w):
+        v0, v1 = v[:, 0::2], v[:, 1::2]
+        w0, w1 = w[:, 0::2], w[:, 1::2]
+        both = (w0 > 0) & (w1 > 0)
+        a, b = raht_fp.ab_q15(np.where(both, w0, 1), np.where(both, w1, 1))
+        a, b, both = a[..., None], b[..., None], both[..., None]
+        dc = (a * v0 + b * v1 + half) >> raht_fp.QA
+        ac = (a * v1 - b * v0 + half) >> raht_fp.QA
+        out = np.where(both, dc, np.where((w0 > 0)[..., None], v0, v1))
+        return out, np.where(both, ac, 0), w0 + w1
+
+    vz, acz, wz = stage(v, w)
+    vy, acy, wy = stage(vz, wz)
+    vx, acx, _ = stage(vy, wy)
+    return vx[:, 0], acz, acy, acx
+
+
+def _mesh_blocks(fwd, n_slices, device, seed=MESH_VALUE_SEED):
+    """(m4)/(m5)'s inputs: the blocks of every level of (d)'s float lane
+    in one run, padded with empty blocks to ``n_slices`` equal slices:
+    float values and weights (S, B, 8, C) / (S, B, 8), the weights as
+    int64, and int64 Q13 values drawn from ``seed`` on occupied slots."""
+    import torch
+    bv = torch.cat([v for v, _ in fwd])
+    bw = torch.cat([w for _, w in fwd])
+    nb, _, nc = bv.shape
+    pad = -nb % n_slices
+    fv = torch.cat([bv, bv.new_zeros(pad, 8, nc)]).reshape(
+        n_slices, -1, 8, nc)
+    fw = torch.cat([bw, bw.new_zeros(pad, 8)]).reshape(n_slices, -1, 8)
+    w = fw.to(torch.int64)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randint(-(1 << 21), 1 << 21, fv.shape, generator=gen,
+                      device=device, dtype=torch.int64)
+    v = torch.where((w > 0)[..., None], q, 0)
+    return nb, v, w, fv, fw
+
+
+def _on_one(parts, device):
+    """A sharded result's per-device parts, slice-major, on ``device``."""
+    import torch
+    return torch.cat([t.to(device) for t in parts])
+
+
+def _shifted_reference(uniq, blocks, depth):
+    """(m3)'s reference frame: the cloud moved one voxel along x and
+    clipped to the cube, cut per slice to the codes within the slice's
+    range and padded with INT64_MAX: (refs (S, M), counts (S,) int32)."""
+    from mpeg_pcc_tmc13_tpu_torch.utils import morton
+    pos = morton.decode(uniq)
+    pos[:, 0] = np.minimum(pos[:, 0] + 1, (1 << depth) - 1)
+    ref = np.unique(morton.encode(pos))
+    rows = [ref[(ref >= b.min()) & (ref <= b.max())] for b in blocks]
+    refs = np.full((len(rows), max(r.size for r in rows)),
+                   np.iinfo(np.int64).max, dtype=np.int64)
+    for s, r in enumerate(rows):
+        refs[s, :r.size] = r
+    return refs, np.array([r.size for r in rows], dtype=np.int32)
+
+
+def phase_m(device, uniq, depth, colors, smi, n_slices=MESH_SLICES,
+            backend=None):
+    """(m) the multi-device layer ``parallel/`` on a mesh of every visible
+    card (``backend="cpu"``: a rehearsal on two host entries), the bench
+    cloud split into ``n_slices`` slices.  The launch counts are set to 0
+    before (m1) and read after (m7); every check uses the plain versions
+    or the host, so only the path launches the kernels.  Then
+    ``raht_fwd_blocks_int`` is timed at (m4)'s shapes.  Returns (times,
+    launches, max abs differences) of the kernels it adds."""
+    import torch
+
+    from mpeg_pcc_tmc13_tpu_torch import host
+    from mpeg_pcc_tmc13_tpu_torch.models import geometry_octree as go
+    from mpeg_pcc_tmc13_tpu_torch.models.attr_raht import qp_to_step_q16
+    from mpeg_pcc_tmc13_tpu_torch.models.attributes import \
+        AttributeContexts
+    from mpeg_pcc_tmc13_tpu_torch.ops import octree
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_blocks as rb
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp_device as fpd
+    from mpeg_pcc_tmc13_tpu_torch.parallel import frame as pframe
+    from mpeg_pcc_tmc13_tpu_torch.parallel import slices as par
+    from mpeg_pcc_tmc13_tpu_torch.parallel.dryrun import dryrun_multichip
+    from mpeg_pcc_tmc13_tpu_torch.utils import morton
+
+    t_phase = time.perf_counter()
+    ndev = torch.cuda.device_count() if backend is None else 2
+    mesh = par.make_mesh(ndev, backend=backend)
+    blocks = par.partition_codes_padded(uniq, n_slices)
+    per_dev = n_slices // ndev
+    rb.reset_launch_counts()
+    fpd.reset_launch_counts()
+
+    # (m1) sharded analysis: each slice equals the single-slice analysis,
+    # the histogram the host sum of the masked bases
+    t0 = time.perf_counter()
+    res, hist = par.sharded_encode_analysis(blocks, depth, mesh)
+    for s in range(n_slices):
+        part = {k: v[s // per_dev][s % per_dev] for k, v in res.items()}
+        one = octree.encode_analysis(torch.as_tensor(
+            blocks[s], device=part["occ"].device), depth)
+        _check(all(torch.equal(part[k], one[k]) for k in one),
+               f"(m1) slice {s}: the sharded analysis differs from "
+               "encode_analysis")
+    base, mask = (par.gather(res[k]) for k in ("ctx_base", "node_mask"))
+    want = np.bincount(base[mask], minlength=octree.NUM_OCC_BASES)
+    _check(hist.device == mesh.devices[0]
+           and np.array_equal(hist.cpu().numpy(), want),
+           "(m1) the histogram differs from the host sum")
+    _line("m", stage="m1_sharded_encode_analysis", slices=n_slices,
+          devices=ndev, points=uniq.size, padded_row=blocks.shape[1],
+          depth=depth, nodes=int(mask.sum()), per_slice="identical",
+          histogram="equals_host_sum", s=f"{time.perf_counter() - t0:.2f}")
+
+    # (m2) the sharded codec round trip checks itself: each slice's
+    # bytes equal the host engine's, the decode gives the cloud back
+    t0 = time.perf_counter()
+    payloads = par.sharded_slice_codec_roundtrip(uniq, depth, mesh,
+                                                 n_slices)
+    _line("m", stage="m2_sharded_slice_codec_roundtrip",
+          bytes=sum(len(p) for p in payloads), vs_host_engine="identical",
+          roundtrip="exact", s=f"{time.perf_counter() - t0:.2f}")
+
+    # (m3) inter analysis against the cloud moved one voxel along x:
+    # each level equals build_levels_np and pred_occupancy_np
+    t0 = time.perf_counter()
+    refs, counts = _shifted_reference(uniq, blocks, depth)
+    got = par.gather(par.sharded_encode_analysis_inter(
+        blocks, depth, refs, counts, mesh))
+    for s in range(n_slices):
+        rs = refs[s, :counts[s]]
+        levels = octree.build_levels_np(np.unique(blocks[s]), depth,
+                                        octree.CTX_MODE_PARENT)
+        for l, lvl in enumerate(levels):
+            pred = octree.pred_occupancy_np(
+                lvl["nodes"], np.unique(rs >> (3 * (depth - l - 1))))
+            m = got["node_mask"][s, l]
+            _check(np.array_equal(got["occ"][s, l][m], lvl["occ"])
+                   and np.array_equal(
+                       got["ctx_base"][s, l][m],
+                       ((lvl["nodes"] & 7).astype(np.int32) << 8) | pred),
+                   f"(m3) slice {s} level {l} differs from "
+                   "pred_occupancy_np")
+    _line("m", stage="m3_sharded_encode_analysis_inter",
+          reference="shifted_1_voxel_x", ref_codes=int(counts.sum()),
+          levels_vs_pred_occupancy_np="identical",
+          s=f"{time.perf_counter() - t0:.2f}")
+
+    # (m4) the fixed-point block stage on the mesh over every level of
+    # (d)'s float lane: the kernel equals its plain version, a sample of
+    # blocks the host spec's pair law
+    t0 = time.perf_counter()
+    fwd, _ = _level_inputs(uniq, colors, depth, device)
+    nb, v8, w8, fv8, fw8 = _mesh_blocks(fwd, n_slices, device)
+    nc = v8.shape[-1]
+    vf, wf = v8.reshape(-1, 8, nc), w8.reshape(-1, 8)
+    fp_out = [_on_one(p, device) for p in par.sharded_raht_fp_blocks(
+        v8, w8, mesh)]
+    fp_ref = fpd.fwd_blocks_int_ref(vf, wf)
+    _sync(device)
+    fp_out = [o.reshape(r.shape) for o, r in zip(fp_out, fp_ref)]
+    fp_err = _max_abs_diff(zip(fp_out, fp_ref))
+    _check(all(torch.equal(o, r) for o, r in zip(fp_out, fp_ref)),
+           f"(m4) raht_fwd_blocks_int differs from fwd_blocks_int_ref: "
+           f"max abs {fp_err}")
+    pick = np.random.default_rng(MESH_VALUE_SEED).choice(
+        vf.shape[0], PAIR_LAW_SAMPLE, replace=False)
+    idx = torch.as_tensor(pick, device=device)
+    law = _pair_law(vf[idx].cpu().numpy(), wf[idx].cpu().numpy())
+    _check(all(np.array_equal(o[idx].cpu().numpy(), x)
+               for o, x in zip(fp_out, law)),
+           "(m4) sampled blocks differ from raht_fp's pair law")
+    _line("m", stage="m4_sharded_raht_fp_blocks", levels=len(fwd),
+          blocks=nb, padded_to=vf.shape[0], channels=nc,
+          vs_fwd_blocks_int_ref="identical", max_abs_err=fp_err, tol=0,
+          pair_law_sample=PAIR_LAW_SAMPLE,
+          s=f"{time.perf_counter() - t0:.2f}")
+
+    # (m5) B1 on every device of the mesh equals its plain version
+    t0 = time.perf_counter()
+    f_out = [_on_one(p, device)
+             for p in par.sharded_raht_blocks(fv8, fw8, mesh)]
+    f_ref = rb.fwd_blocks_ref(fv8.reshape(-1, 8, nc), fw8.reshape(-1, 8))
+    _sync(device)
+    f_out = [o.reshape(r.shape) for o, r in zip(f_out, f_ref)]
+    f_err = _max_abs_diff(zip(f_out, f_ref))
+    _check(all(torch.equal(o, r) for o, r in zip(f_out, f_ref)),
+           f"(m5) sharded B1 differs from fwd_blocks_ref: max abs {f_err}")
+    _line("m", stage="m5_sharded_raht_blocks", blocks=vf.shape[0],
+          vs_fwd_blocks_ref="identical", max_abs_err=f_err, tol=0,
+          s=f"{time.perf_counter() - t0:.2f}")
+
+    # (m6) the frame codec placed slice by slice, (d)'s colours at qp 22:
+    # geometry equals the host engine's PARENT stream, colour the
+    # fixed-point spec's, and the decode gives the codes back
+    t0 = time.perf_counter()
+    devs = pframe.devices_for(ndev, backend=backend)
+    per = blocks.shape[1]
+    slice_codes = [np.unique(b) for b in blocks]
+    slice_vals = [colors[s * per:s * per + c.size]
+                  for s, c in enumerate(slice_codes)]
+    step = qp_to_step_q16(BENCH_QP)
+    geom_p, attr_p = pframe.encode_frame_sharded(
+        slice_codes, depth, devs, values=slice_vals, steps_q16=[step] * 3,
+        num_threads=4)
+    enc_s = time.perf_counter() - t0
+    nmax = max(c.size for c in slice_codes) + 64
+    outs = pframe.decode_frame_sharded(geom_p, depth, devs, nmax)
+    for s, (nodes, cnt) in enumerate(outs):
+        _check(nodes.device == devs[s % ndev]
+               and np.array_equal(nodes[:int(cnt)].cpu().numpy(),
+                                  slice_codes[s]),
+               f"(m6) slice {s} decodes to other codes")
+    codec_s = time.perf_counter() - t0
+    for s, codes in enumerate(slice_codes):
+        enc = host.RangeEncoder()
+        go.encode(morton.decode(codes), depth, enc, go.OctreeContexts(),
+                  unique_points=True, engine="native", need_order=False,
+                  ctx_mode=octree.CTX_MODE_PARENT)
+        aenc = host.RangeEncoder()
+        actx = AttributeContexts()
+        host.forward_predicted_fp(
+            codes, slice_vals[s], depth, lambda c, tag: step,
+            emit=lambda q, tag: aenc.zrow_residuals(actx.zrow,
+                                                    q.astype(np.int32)))
+        _check(geom_p[s] == enc.get_bytes(),
+               f"(m6) slice {s}: geometry differs from the host engine's")
+        _check(attr_p[s] == aenc.get_bytes(),
+               f"(m6) slice {s}: colour differs from forward_predicted_fp")
+    _line("m", stage="m6_encode_decode_frame_sharded", slices=n_slices,
+          geom_bytes=sum(map(len, geom_p)), attr_bytes=sum(map(len, attr_p)),
+          geom_vs_host_engine="identical", attr_vs_spec="identical",
+          spec_slices=n_slices, decoded_codes="identical",
+          encode_s=f"{enc_s:.2f}", encode_decode_s=f"{codec_s:.2f}",
+          s=f"{time.perf_counter() - t0:.2f}")
+
+    # (m7) the dry run of every stage on the mesh's devices
+    t0 = time.perf_counter()
+    dryrun_multichip(ndev, backend=backend)
+    launches = {"fwd_blocks_int": fpd.LAUNCHES["fwd_blocks_int"],
+                "fwd_blocks": rb.LAUNCHES["fwd_blocks"]}
+    _line("m", stage="m7_dryrun_multichip", devices=ndev,
+          s=f"{time.perf_counter() - t0:.2f}")
+    _line("m", launches=json.dumps(launches, separators=(",", ":")),
+          phase_s=f"{time.perf_counter() - t_phase:.1f}", card=repr(smi))
+    _check(all(launches.values()),
+           f"(m) a kernel of the path was not launched: {launches}")
+
+    # raht_fwd_blocks_int at (m4)'s shapes: one launch over every local
+    # block, as the sharded call makes on one card
+    k, p, d = _turns("fwd_blocks_int", lambda: fpd.fwd_blocks_int(vf, wf),
+                     lambda: fpd.fwd_blocks_int_ref(vf, wf), tag="m",
+                     blocks=vf.shape[0], channels=nc)
+    nbytes = _io_bytes(vf, wf, *fp_ref)
+    # per block 7 pairs x (2 divisions, 2 square roots, ~16 integer ops
+    # of their corrections) and 7 pairs x C x ~10 integer ops, counted at
+    # the fp32 rate (the table has no int64 rate; the card emulates int64
+    # division and products, so this understates them)
+    bound, by = _bound_ms(nbytes, vf.shape[0] * 7 * (20 + 10 * nc))
+    _line("m", kernel="fwd_blocks_int", device_ms=f"{d:.4f}",
+          bound_ms=f"{bound:.4f}", bound_by=by, share=f"{bound / d:.3f}",
+          bytes=nbytes, bytes_per_block=f"{nbytes / vf.shape[0]:.1f}")
+    return ({"fwd_blocks_int": (k, p, d, bound, by)},
+            {"fwd_blocks_int": launches["fwd_blocks_int"]},
+            {"fwd_blocks_int": fp_err})
+
+
 def _level_inputs(uniq, colors, depth, device):
     """The (B, 8, C) / (B, 8) inputs of every level of the float lane of
     (d), propagated with the plain version (no kernel launches)."""
@@ -1299,7 +1594,7 @@ def _bound_ms(nbytes, flops=0.0):
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
-def _turns(name, kern, ref, reps_plain=TIMING_REPS, **shape):
+def _turns(name, kern, ref, reps_plain=TIMING_REPS, tag="f", **shape):
     """Plain, kernel, kernel, plain, then the kernel's pass as a replayed
     CUDA graph twice; returns (kernel ms, plain ms, device ms)."""
     p1 = _time_pass_ms(ref, reps_plain)
@@ -1308,7 +1603,7 @@ def _turns(name, kern, ref, reps_plain=TIMING_REPS, **shape):
     p2 = _time_pass_ms(ref, reps_plain)
     d1 = _graph_ms(kern)
     d2 = _graph_ms(kern)
-    _line("f", kernel=name, **shape, kernel_ms=f"{k1:.4f},{k2:.4f}",
+    _line(tag, kernel=name, **shape, kernel_ms=f"{k1:.4f},{k2:.4f}",
           plain_ms=f"{p1:.4f},{p2:.4f}", device_ms=f"{d1:.4f},{d2:.4f}")
     return min(k1, k2), min(p1, p2), min(d1, d2)
 
@@ -1602,8 +1897,13 @@ def main() -> int:
     phase_j(device, uniq, BENCH_DEPTH, r.geom_payload)         # (j)
     phase_k(device, uniq, BENCH_DEPTH, colors, smi)            # (k)
     phase_l(device, uniq, colors, smi)                         # (l)
+    m_times, m_launches, m_errs = phase_m(                     # (m)
+        device, uniq, BENCH_DEPTH, colors, smi)
+    launches.update(m_launches)
+    errs.update(m_errs)
     times, chain_ms = phase_f(device, uniq, BENCH_DEPTH,       # (f)
                               colors, rans, errs)
+    times.update(m_times)
 
     kernels = []
     for key, (name, src, replaces) in KERNELS.items():

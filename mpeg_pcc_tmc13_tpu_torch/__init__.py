@@ -34,9 +34,14 @@ What is ported:
 * the tmc3 syntax family (``conformance``: encoder, decoder and
   ``ref_hls`` over the native engine; ``--refSyntax=1`` in the CLI),
   host code that asks for no device,
-* ``tools.ply_merge`` (merge frames tagged by ``frameindex``, split).
+* ``tools.ply_merge`` (merge frames tagged by ``frameindex``, split),
+* the multi-device layer (``parallel``): the slice mesh over torch
+  devices (sharded analysis with its histogram reduce, inter analysis,
+  the float block butterfly and the fixed-point one, whose hand-written
+  CUDA kernel is ``csrc/raht_fp_blocks.cu``), the per-slice placement of
+  a frame's encode and decode, and the dry run ``dryrun_multichip``.
 
-Still to port: the multi-device layer (``parallel/``).
+Nothing of the JAX package is left to port.
 
 The package stands alone: it imports neither jax nor anything of
 ``mpeg_pcc_tmc13_tpu``.  The host layer it needs from the reference

@@ -127,6 +127,9 @@ def _open(so: Path):
     lib.raht_fwd_blocks_launch.restype = i32
     lib.raht_inv_blocks_launch.argtypes = [vp, vp, vp, i64, i32, vp]
     lib.raht_inv_blocks_launch.restype = i32
+    lib.raht_fwd_blocks_int_launch.argtypes = [vp, vp, vp, vp, vp, vp, i64,
+                                               i32, vp]
+    lib.raht_fwd_blocks_int_launch.restype = i32
     lib.rans_table_pass_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp]
     lib.rans_table_pass_launch.restype = i32
     lib.rans_encode_emit_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp,

@@ -10,7 +10,9 @@ The octree is implicit in the sorted leaf codes: the nodes of level
   or PARENT contexts) — the executable spec of the byte stream,
 * torch device half: ``encode_analysis`` / ``encode_analysis_packed``
   (the full per-level analysis with context bases, for
-  ``models.geometry_octree`` ``engine="device"``), ``encode_occ_u8`` /
+  ``models.geometry_octree`` ``engine="device"``),
+  ``encode_analysis_inter`` (the same with predOcc contexts from a
+  reference frame, for ``parallel.slices``), ``encode_occ_u8`` /
   ``encode_occ_u8_hdr`` (occupancy bytes only, the device pipeline's
   raw link), ``encode_occ_packed_hdr`` (the same bytes through the
   static prefix code, the packed link) and ``decode_expand_stream``
@@ -249,6 +251,34 @@ def encode_occ_u8_hdr(leaf_codes_sorted: torch.Tensor, depth: int,
     return torch.cat([_u32_le_bytes(counts), occ])
 
 
+def _analysis_buffers(depth: int, n: int, dev) -> dict:
+    """The zeroed (depth, N) outputs of the encoder analyses."""
+    return {"occ": torch.zeros(depth, n, dtype=torch.int32, device=dev),
+            "ctx_base": torch.zeros(depth, n, dtype=torch.int32, device=dev),
+            "node_mask": torch.zeros(depth, n, dtype=torch.bool, device=dev),
+            "node_code": torch.zeros(depth, n, dtype=torch.int64, device=dev)}
+
+
+def _level_segments(c: torch.Tensor, depth: int, l: int,
+                    true1: torch.Tensor):
+    """Level ``l``'s nodes over the sorted codes ``c``: (cl, first,
+    occ_rows) with cl the level-l code of each point, first whether the
+    point opens its node, occ_rows its node's occupancy byte (int64).  A
+    node's byte is the sum of ``1 << octant`` over the first point of each
+    of its children, so add == or even with duplicate points."""
+    shift_node = 3 * (depth - l)
+    cl = c >> shift_node                      # level-l code per point
+    first = torch.cat([true1, cl[1:] != cl[:-1]])
+    seg = torch.cumsum(first, dim=0) - 1      # node id per point
+    cc = c >> (shift_node - 3)                # level-(l+1) code
+    child_first = torch.cat([true1, cc[1:] != cc[:-1]])
+    contrib = torch.where(child_first,
+                          torch.bitwise_left_shift(1, cc & 7), 0)
+    occ = torch.zeros(c.shape[0], dtype=torch.int64, device=c.device)
+    occ.index_add_(0, seg, contrib)
+    return cl, first, occ[seg]
+
+
 def encode_analysis(leaf_codes_sorted: torch.Tensor, depth: int,
                     mode: int = CTX_MODE_NEIGH):
     """Full-depth encoder analysis (reference ``encode_analysis_jax``,
@@ -263,38 +293,21 @@ def encode_analysis(leaf_codes_sorted: torch.Tensor, depth: int,
       ctx_base[l, i]  — its context base in ``mode`` (int32),
       node_code[l, i] — the level-l code of point i (int64).
 
-    A Python loop over the levels of int64 torch ops.  A node's byte is
-    the sum of ``1 << octant`` over the first point of each of its
-    children, so add == or even with duplicate points.
+    A Python loop over the levels of int64 torch ops (``_level_segments``).
     """
     c = leaf_codes_sorted
     n = c.shape[0]
     dev = c.device
-    occ_out = torch.zeros(depth, n, dtype=torch.int32, device=dev)
-    base_out = torch.zeros(depth, n, dtype=torch.int32, device=dev)
-    mask_out = torch.zeros(depth, n, dtype=torch.bool, device=dev)
-    code_out = torch.zeros(depth, n, dtype=torch.int64, device=dev)
+    out = _analysis_buffers(depth, n, dev)
     if n == 0:
-        return {"occ": occ_out, "ctx_base": base_out,
-                "node_mask": mask_out, "node_code": code_out}
+        return out
     true1 = torch.ones(1, dtype=torch.bool, device=dev)
     offsets = torch.as_tensor(_FACE_OFFSETS, device=dev)
     bit6 = torch.bitwise_left_shift(
         1, torch.arange(6, dtype=torch.int64, device=dev))
     prev_occ_rows = torch.zeros(n, dtype=torch.int64, device=dev)
     for l in range(depth):
-        shift_node = 3 * (depth - l)
-        cl = c >> shift_node                      # level-l code per point
-        first = torch.cat([true1, cl[1:] != cl[:-1]])
-        seg = torch.cumsum(first, dim=0) - 1      # node id per point
-        cc = c >> (shift_node - 3)                # level-(l+1) code
-        child_first = torch.cat([true1, cc[1:] != cc[:-1]])
-        contrib = torch.where(child_first,
-                              torch.bitwise_left_shift(1, cc & 7), 0)
-        occ = torch.zeros(n, dtype=torch.int64, device=dev)
-        occ.index_add_(0, seg, contrib)
-        occ_rows = occ[seg]                       # per-point node occ
-
+        cl, first, occ_rows = _level_segments(c, depth, l, true1)
         if mode == CTX_MODE_NEIGH:
             pos = morton.decode(cl)                           # (N,3)
             q = pos[:, None, :] + offsets[None, :, :]         # (N,6,3)
@@ -308,13 +321,55 @@ def encode_analysis(leaf_codes_sorted: torch.Tensor, depth: int,
         else:
             base = ((cl & 7) << 8) | prev_occ_rows
 
-        occ_out[l] = torch.where(first, occ_rows, 0)
-        base_out[l] = torch.where(first, base, 0)
-        mask_out[l] = first
-        code_out[l] = cl
+        out["occ"][l] = torch.where(first, occ_rows, 0)
+        out["ctx_base"][l] = torch.where(first, base, 0)
+        out["node_mask"][l] = first
+        out["node_code"][l] = cl
         prev_occ_rows = occ_rows
-    return {"occ": occ_out, "ctx_base": base_out, "node_mask": mask_out,
-            "node_code": code_out}
+    return out
+
+
+def encode_analysis_inter(leaf_codes_sorted: torch.Tensor, depth: int,
+                          ref_codes_sorted: torch.Tensor, ref_count):
+    """Inter-frame encoder analysis (reference
+    ``encode_analysis_inter_jax``, ops/octree.py:298-365): the per-level
+    occupancy of ``encode_analysis`` with predOcc contexts from a
+    motion-compensated reference, ``ctx_base = (child_octant << 8) |
+    pred_byte`` (``pred_occupancy_np`` is its numpy spec).
+
+    ref_codes_sorted: (M,) sorted reference leaf codes on the same
+    device, padded past ``ref_count`` (an int or a 0-d tensor) with
+    INT64_MAX so padded slots never match.  Bit j of a node's pred byte
+    is set iff its child j is among the reference's level-(l+1) codes,
+    found by ``searchsorted`` of the 8 child queries.  Same output dict
+    as ``encode_analysis``.
+    """
+    c = leaf_codes_sorted
+    r = ref_codes_sorted
+    n = c.shape[0]
+    m = r.shape[0]
+    dev = c.device
+    out = _analysis_buffers(depth, n, dev)
+    if n == 0:
+        return out
+    true1 = torch.ones(1, dtype=torch.bool, device=dev)
+    octants = torch.arange(8, dtype=torch.int64, device=dev)
+    bit8 = torch.bitwise_left_shift(1, octants)
+    ref_count = torch.as_tensor(ref_count, dtype=torch.int64, device=dev)
+    for l in range(depth):
+        cl, first, occ_rows = _level_segments(c, depth, l, true1)
+        # reference children at level l+1 (a shift keeps them sorted)
+        rl = r >> (3 * (depth - l) - 3)
+        queries = ((cl[:, None] << 3) | octants).reshape(-1)
+        idx = torch.searchsorted(rl, queries).clamp_(max=m - 1)
+        hit = ((rl[idx] == queries) & (idx < ref_count)).reshape(n, 8)
+        pred = (hit.to(torch.int64) * bit8).sum(dim=1)
+        base = ((cl & 7) << 8) | pred
+        out["occ"][l] = torch.where(first, occ_rows, 0)
+        out["ctx_base"][l] = torch.where(first, base, 0)
+        out["node_mask"][l] = first
+        out["node_code"][l] = cl
+    return out
 
 
 def encode_analysis_packed(leaf_codes_sorted: torch.Tensor, depth: int,

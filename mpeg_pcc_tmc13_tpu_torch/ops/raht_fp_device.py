@@ -1,5 +1,6 @@
 """Device fixed-point RAHT on int64 tensors: counterpart of
-``mpeg_pcc_tmc13_tpu/ops/raht_fp_device.py:159-515``.
+``mpeg_pcc_tmc13_tpu/ops/raht_fp_device.py:159-515`` (and
+``isqrt64_dev``/``fwd_blocks_int``, :292-329).
 
 Every data-dependent step is an integer add, multiply, arithmetic shift
 or floor division on int64 tensors, so the quantised coefficients are
@@ -20,6 +21,12 @@ line for line from the reference module (its lines 38-153);
   row counts are geometry-static), uploads them in one copy, and the
   device runs the prediction + inverse network top-down.
 
+The mesh's attribute stage, ``fwd_blocks_int`` (reference
+``isqrt64_dev``/``fwd_blocks_int``, :292-329), computes the butterfly
+coefficients on the device from the block weights: a CUDA tensor
+launches the hand-written kernel of ``csrc/raht_fp_blocks.cu``, a CPU
+tensor runs its plain version ``fwd_blocks_int_ref``.
+
 Translation rules from the JAX form: ``jnp.floor_divide`` is
 ``torch.div(..., rounding_mode="floor")``; ``>>`` on int64 is
 arithmetic in both; ``.at[].set``/``.at[].add`` are ``index_put_`` /
@@ -29,6 +36,7 @@ in range).
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import List
 
@@ -36,7 +44,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve as resolve_device
-from . import raht_fp
+from . import _kernels, raht_fp
 from .raht import _offset_neighbor_codes, _TOUCH_TABLE
 
 F = raht_fp.F
@@ -311,6 +319,108 @@ def _compact(acz, acy, acx, p):
     y = acy.reshape(mp * 2, c)[p["flat_y"]]
     x = acx.reshape(mp, c)[p["flat_x"]]
     return z, y, x
+
+
+# ---------------------------------------------------------------------
+# the block butterfly with on-device coefficients (the mesh's attribute
+# stage, parallel/slices.py:sharded_raht_fp_blocks)
+# ---------------------------------------------------------------------
+
+# launches of the kernel (the plain version adds nothing); safe to count
+# from several threads
+LAUNCHES = {"fwd_blocks_int": 0}
+_COUNT_LOCK = threading.Lock()
+# the most channels one launch holds in its shared-memory tile
+# (csrc/raht_fp_blocks.cu: 128 blocks x (9 + 8C + 1) words in 227 KB)
+MAX_KERNEL_CHANNELS = 27
+
+
+def reset_launch_counts() -> None:
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def isqrt64_dev(x: torch.Tensor) -> torch.Tensor:
+    """floor(sqrt(x)) of int64 x, identical to ``raht_fp.isqrt64``: a
+    float64 seed truncated, then two integer corrections (reference
+    ``isqrt64_dev``, ops/raht_fp_device.py:292-300)."""
+    y = torch.sqrt(x.to(torch.float64)).to(_I64)
+    for _ in range(2):
+        y = torch.where((y + 1) * (y + 1) <= x, y + 1, y)
+        y = torch.where(y * y > x, y - 1, y)
+    return y.clamp(min=0)
+
+
+def fwd_blocks_int_ref(blk_v: torch.Tensor, blk_w: torch.Tensor):
+    """Plain PyTorch integer block butterfly (reference
+    ``fwd_blocks_int``, ops/raht_fp_device.py:303-329, line for line):
+    the Q15 coefficients of each pair from ``isqrt64_dev((w << 30) //
+    ws)``, rounding by ``(x + QAH) >> QA``."""
+
+    def stage(v, w):
+        v0, v1 = v[:, 0::2], v[:, 1::2]
+        w0, w1 = w[:, 0::2], w[:, 1::2]
+        both = ((w0 > 0) & (w1 > 0))[..., None]
+        ws = (w0 + w1).clamp(min=1)
+        a = isqrt64_dev(_floordiv(w0 << 30, ws))[..., None]
+        b = isqrt64_dev(_floordiv(w1 << 30, ws))[..., None]
+        dc = (a * v0 + b * v1 + QAH) >> QA
+        ac = (a * v1 - b * v0 + QAH) >> QA
+        single = torch.where((w0 > 0)[..., None], v0, v1)
+        return (torch.where(both, dc, single), torch.where(both, ac, 0),
+                w0 + w1)
+
+    vz, acz, wz = stage(blk_v, blk_w)
+    vy, acy, wy = stage(vz, wz)
+    vx, acx, _ = stage(vy, wy)
+    return vx[:, 0], acz, acy, acx
+
+
+def fwd_blocks_int(blk_v: torch.Tensor, blk_w: torch.Tensor):
+    """blk_v (B, 8, C) int64 Q13 values, blk_w (B, 8) int64 subtree
+    weights (0 = empty slot) -> (dc (B, C), acz (B, 4, C), acy (B, 2, C),
+    acx (B, 1, C)) int64.
+
+    A CPU tensor runs ``fwd_blocks_int_ref``; a CUDA tensor launches
+    ``raht_fwd_blocks_int`` of ``csrc/raht_fp_blocks.cu`` (bit-identical
+    to it) or raises."""
+    dev = blk_v.device
+    if dev.type == "cpu":
+        return fwd_blocks_int_ref(blk_v, blk_w)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}: pass CPU tensors for "
+                         "the plain version or CUDA tensors for the kernel")
+    if blk_w.device != dev:
+        raise ValueError(f"weights are on {blk_w.device}, values on {dev}")
+    if blk_v.dtype != _I64 or blk_w.dtype != _I64:
+        raise TypeError("values and weights must be int64")
+    if (blk_v.dim() != 3 or blk_v.shape[1] != 8
+            or tuple(blk_w.shape) != tuple(blk_v.shape[:2])):
+        raise ValueError(f"need values (B, 8, C) and weights (B, 8), got "
+                         f"{tuple(blk_v.shape)} and {tuple(blk_w.shape)}")
+    if not (blk_v.is_contiguous() and blk_w.is_contiguous()):
+        raise ValueError("values and weights must be contiguous")
+    nb, _, nc = blk_v.shape
+    if nc > MAX_KERNEL_CHANNELS:
+        raise ValueError(f"the kernel takes at most {MAX_KERNEL_CHANNELS} "
+                         f"channels, got {nc}")
+    out = (blk_v.new_empty(nb, nc), blk_v.new_empty(nb, 4, nc),
+           blk_v.new_empty(nb, 2, nc), blk_v.new_empty(nb, 1, nc))
+    if nb == 0 or nc == 0:             # a grid of 0 is no valid launch
+        return out
+    lib = _kernels.load()
+    with torch.cuda.device(dev):
+        rc = lib.raht_fwd_blocks_int_launch(
+            blk_v.data_ptr(), blk_w.data_ptr(),
+            *(t.data_ptr() for t in out), nb, nc,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"raht_fwd_blocks_int launch failed: CUDA error "
+                           f"{rc}")
+    with _COUNT_LOCK:
+        LAUNCHES["fwd_blocks_int"] += 1
+    return out
 
 
 def _truth_level(vals, p):

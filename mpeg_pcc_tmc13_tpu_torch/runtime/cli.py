@@ -16,6 +16,8 @@ This is the PyTorch + CUDA port's copy of
 bytes.  ``--device=<torch device>`` places the on-device geometry
 engines (``--geomEngine=device|rans``, and the decode of rANS bricks);
 unset, they take the current CUDA device and refuse to run without one.
+``--shardDevices=N`` (N > 1) places the slice workers on the first N
+CUDA devices instead, so it is refused together with ``--device``.
 The host-only paths (``--refSyntax=1``, the host geometry engines, every
 attribute codec) need no device and ask for none.
 """
@@ -981,6 +983,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         p.recolour_window = cfg.recolour_window
     if not cfg.compressed_path:
         print("error: compressedStreamPath required", file=sys.stderr)
+        return 1
+    if p.shard_devices > 1 and p.device is not None:
+        # the slice workers go round-robin over the first N cards; an
+        # explicit --device would pin every one of them to one device
+        print(f"error: --shardDevices={p.shard_devices} places the slice "
+              f"workers on the first {p.shard_devices} CUDA devices and "
+              f"cannot be combined with --device={p.device}; give one of "
+              "the two", file=sys.stderr)
         return 1
     if cfg.mode == 0 and not cfg.uncompressed_path:
         print("error: uncompressedDataPath required", file=sys.stderr)

@@ -269,6 +269,26 @@ def test_shard_devices_refuses_without_cuda(no_cuda, frames):
         enc.compress(cloud, lambda b: None)
 
 
+def test_shard_devices_refuses_an_explicit_device(frames, tmp_path,
+                                                 capsys):
+    """--shardDevices>1 round-robins the slice workers over the cards, so
+    an explicit --device (which would pin them all to one) is refused
+    with a message and exit code 1, before anything runs; either option
+    alone is taken."""
+    src = frames / "f0000.ply"
+    out = tmp_path / "o.bin"
+    args = ["--mode=0", f"--uncompressedDataPath={src}",
+            f"--compressedStreamPath={out}", "--sliceMaxPoints=300"]
+    for device in ("cpu", "cuda:0"):
+        assert tcli.main([*args, "--shardDevices=2",
+                          f"--device={device}"]) == 1
+        err = capsys.readouterr().err
+        assert "--shardDevices=2" in err and f"--device={device}" in err
+        assert not out.exists()
+    _run(tcli, [*args, "--shardDevices=1", "--device=cpu"])
+    assert out.stat().st_size > 0
+
+
 def test_trisoup_and_ref_syntax_not_ported(frames, tmp_path):
     """Keeps its name from when both were refused.  Now: the command
     line a user runs takes trisoup and ``--refSyntax=1``, decodes both

@@ -154,6 +154,10 @@ _JAX_BLOCKED = textwrap.dedent("""
         streams.append(enc.get_bytes())
     assert streams[0] == streams[1]
 
+    # the multi-device layer's dry run, on a host mesh of two entries
+    from mpeg_pcc_tmc13_tpu_torch.parallel.dryrun import dryrun_multichip
+    dryrun_multichip(2, backend="cpu")
+
     # the port's CLI on the flag sets of argv[3], frames from argv[1],
     # streams and decoded PLYs into argv[2]
     from mpeg_pcc_tmc13_tpu_torch.runtime import cli
@@ -181,7 +185,7 @@ _BLOCKED_REF_SYNTAX = {"ref_syntax_raht": [
 
 def test_port_runs_with_jax_blocked(tmp_path):
     """With jax and the JAX package blocked, the port's round trip, its
-    geometry engines and its CLI run; the CLI's streams and decoded PLYs
+    geometry engines, the multi-device dry run and its CLI run; the CLI's streams and decoded PLYs
     are the JAX CLI's, byte for byte."""
     from test_torch_cli import FLAG_SETS, _encode_decode, _write_frame
 

@@ -21,6 +21,9 @@ from mpeg_pcc_tmc13_tpu_torch.bitstream import entropy as tentropy
 from mpeg_pcc_tmc13_tpu_torch.models import geometry_octree as tgo
 from mpeg_pcc_tmc13_tpu_torch.ops import octree as tops
 from mpeg_pcc_tmc13_tpu_torch.ops import raht_device, raht_fp_device
+from mpeg_pcc_tmc13_tpu_torch.parallel import frame as pframe
+from mpeg_pcc_tmc13_tpu_torch.parallel import slices as pslices
+from mpeg_pcc_tmc13_tpu_torch.parallel.dryrun import dryrun_multichip
 from mpeg_pcc_tmc13_tpu_torch.runtime import device_pipeline as dp
 from mpeg_pcc_tmc13_tpu_torch.runtime import roundtrip as rt
 from mpeg_pcc_tmc13_tpu_torch.utils import morton
@@ -72,6 +75,12 @@ def test_no_module_imports_jax_or_the_reference():
     # the scan resolves relative imports into the port's own package
     mods = _imports(os.path.join(PKG, "host.py"))
     assert "mpeg_pcc_tmc13_tpu_torch.bitstream.entropy" in mods
+    # and walks every subpackage, the multi-device layer included
+    scanned = {os.path.relpath(p, PKG) for p in _sources()}
+    for name in ("slices.py", "frame.py", "dryrun.py"):
+        assert os.path.join("parallel", name) in scanned, name
+    assert "mpeg_pcc_tmc13_tpu_torch.utils.device" in _imports(
+        os.path.join(PKG, "parallel", "slices.py"))
 
 
 def test_native_library_is_the_ports_own():
@@ -213,12 +222,17 @@ def _entry_points():
             uniq, acs, root, 4),
         "DeviceFpRaht": lambda: raht_fp_device.DeviceFpRaht(
             uniq, 4, [1 << 16] * 3),
+        "make_mesh": lambda: pslices.make_mesh(2),
+        "devices_for": lambda: pframe.devices_for(2),
+        "dryrun_multichip": lambda: dryrun_multichip(2),
     }
 
 
 @pytest.mark.parametrize("name", ["device_roundtrip", "encode_pipelined",
                                   "decode_pipelined", "forward_device",
-                                  "inverse_device", "DeviceFpRaht"])
+                                  "inverse_device", "DeviceFpRaht",
+                                  "make_mesh", "devices_for",
+                                  "dryrun_multichip"])
 def test_entry_point_needs_a_device(name, monkeypatch):
     """Called without ``device`` an entry point takes the current CUDA
     device; with none present it raises instead of running on the host."""
