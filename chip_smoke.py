@@ -74,7 +74,13 @@ printed line:
       slice by slice with (d)'s colours, geometry equal to the host
       engine's, colour to ``forward_predicted_fp``'s, decoded codes to the
       input; (m7) ``dryrun_multichip``; then ``raht_fwd_blocks_int``
-      timed at (m4)'s shapes,
+      held to its plain version at B in {1, 127, 128, 129, 300,001} x C
+      in {1, 2, 3, 5, 28, 32} (ragged tiles, the persistent grid's tail,
+      runs of 4 channels, general-path blocks among fast ones, values
+      that wrap), one launch a run, and timed at (m4)'s shapes at C = 3
+      and 1 beside its byte bound and its issue bound (the fast path's
+      SASS instructions a block from ``cuobjdump``, at the SM clock
+      nvidia-smi reads under load),
   (f) timing: the stage times of a second (warm) round trip, and each
       kernel against its plain version at the shapes of (d) and (g):
       the pass through the wrappers (CUDA events), its device time (the
@@ -1498,23 +1504,134 @@ def phase_m(device, uniq, depth, colors, smi, n_slices=MESH_SLICES,
     _check(all(launches.values()),
            f"(m) a kernel of the path was not launched: {launches}")
 
-    # raht_fwd_blocks_int at (m4)'s shapes: one launch over every local
-    # block, as the sharded call makes on one card
-    k, p, d = _turns("fwd_blocks_int", lambda: fpd.fwd_blocks_int(vf, wf),
-                     lambda: fpd.fwd_blocks_int_ref(vf, wf), tag="m",
-                     blocks=vf.shape[0], channels=nc)
-    nbytes = _io_bytes(vf, wf, *fp_ref)
-    # per block 7 pairs x (2 divisions, 2 square roots, ~16 integer ops
-    # of their corrections) and 7 pairs x C x ~10 integer ops, counted at
-    # the fp32 rate (the table has no int64 rate; the card emulates int64
-    # division and products, so this understates them)
-    bound, by = _bound_ms(nbytes, vf.shape[0] * 7 * (20 + 10 * nc))
-    _line("m", kernel="fwd_blocks_int", device_ms=f"{d:.4f}",
-          bound_ms=f"{bound:.4f}", bound_by=by, share=f"{bound / d:.3f}",
-          bytes=nbytes, bytes_per_block=f"{nbytes / vf.shape[0]:.1f}")
-    return ({"fwd_blocks_int": (k, p, d, bound, by)},
-            {"fwd_blocks_int": launches["fwd_blocks_int"]},
+    # the redesigned kernel beyond the path's shapes: ragged tiles, the
+    # persistent grid's tail, channel runs, general-path blocks
+    fp_err = max(fp_err, _fp_shape_checks(device))
+
+    # raht_fwd_blocks_int at (m4)'s shapes, colour and reflectance: one
+    # launch over every local block, as the sharded call makes on one card
+    times = {}
+    for nch in (nc, 1):
+        v = vf if nch == nc else vf[..., :nch].contiguous()
+        k, p, d = _turns("fwd_blocks_int", lambda: fpd.fwd_blocks_int(v, wf),
+                         lambda: fpd.fwd_blocks_int_ref(v, wf), tag="m",
+                         blocks=v.shape[0], channels=nch)
+        nbytes = _io_bytes(v, wf, *fpd.fwd_blocks_int_ref(v, wf))
+        issue, per_block, mhz = _fp_issue_bound(
+            nch, v.shape[0], lambda: fpd.fwd_blocks_int(v, wf))
+        byte_ms = _bound_ms(nbytes)[0]
+        bound, by = max((byte_ms, "bytes"), (issue, "operations"))
+        _line("m", kernel="fwd_blocks_int", channels=nch, device_ms=f"{d:.4f}",
+              bound_ms=f"{bound:.4f}", bound_by=by, share=f"{bound / d:.3f}",
+              byte_bound_ms=f"{byte_ms:.4f}", bytes=nbytes,
+              bytes_per_block=f"{nbytes / v.shape[0]:.1f}",
+              issue_bound_ms=f"{issue:.4f}",
+              fast_path_sass_per_block=per_block, sm_clock_mhz=mhz)
+        if nch == nc:
+            times["fwd_blocks_int"] = (k, p, d, bound, by)
+    return (times, {"fwd_blocks_int": launches["fwd_blocks_int"]},
             {"fwd_blocks_int": fp_err})
+
+
+FP_CHECK_BLOCKS = (1, 127, 128, 129, 300_001)  # tiles of 128, grid tail
+FP_CHECK_CHANNELS = (1, 2, 3, 5, 28, 32)        # 5, 28, 32 in runs of 4
+
+
+def _fp_check_inputs(nb, nc, seed, device):
+    """(B, 8, C) int64 values and (B, 8) weights for the kernel's checks:
+    occupancy patterns with weights 1..64 (the fast path), and in every
+    tile a few blocks with weights up to 2^29 a slot (sums of 2^22-2^32:
+    the general path), block 0 one weight of 2^32 - 1; Q13 values, and
+    values over the whole int64 range in every 7th block (the mix
+    wraps)."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    occ = torch.randint(0, 2, (nb, 8), generator=g, device=device).bool()
+    w = torch.where(occ, torch.randint(1, 65, (nb, 8), generator=g,
+                                       device=device), 0)
+    big = torch.arange(min(5, nb - 1), nb, 61, device=device)
+    w[big] = torch.randint(0, 1 << 29, (big.numel(), 8), generator=g,
+                           device=device)
+    w[0, 0] = (1 << 32) - 1
+    v = torch.randint(-(1 << 21), 1 << 21, (nb, 8, nc), generator=g,
+                      device=device)
+    wide = torch.arange(0, nb, 7, device=device)
+    v[wide] = torch.randint(-(1 << 62), 1 << 62, (wide.numel(), 8, nc),
+                            generator=g, device=device) * 2
+    return v, w
+
+
+def _fp_shape_checks(device):
+    """``raht_fwd_blocks_int`` against ``fwd_blocks_int_ref`` at every B of
+    ``FP_CHECK_BLOCKS`` and C of ``FP_CHECK_CHANNELS``, bit for bit, each
+    call one launch per run of ``channel_runs(C)``.  Returns the largest
+    absolute difference (0)."""
+    import torch
+
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp_device as fpd
+    t0 = time.perf_counter()
+    err, general, launched = 0, 0, {}
+    for nb in FP_CHECK_BLOCKS:
+        for nch in FP_CHECK_CHANNELS:
+            v, w = _fp_check_inputs(nb, nch, nb * 64 + nch, device)
+            before = fpd.LAUNCHES["fwd_blocks_int"]
+            got = fpd.fwd_blocks_int(v, w)
+            launched[nch] = fpd.LAUNCHES["fwd_blocks_int"] - before
+            want = fpd.fwd_blocks_int_ref(v, w)
+            _sync(device)
+            e = _max_abs_diff(zip(got, want))
+            err = max(err, e)
+            _check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                   f"(m) raht_fwd_blocks_int differs from fwd_blocks_int_ref "
+                   f"at B={nb}, C={nch}: max abs {e}")
+            _check(launched[nch] == len(fpd.channel_runs(nch)),
+                   f"(m) B={nb}, C={nch}: {launched[nch]} launches, want "
+                   f"{len(fpd.channel_runs(nch))}")
+            general += int((~fpd.fast_blocks(w)).sum())
+    _line("m", stage="fwd_blocks_int_shapes", blocks=list(FP_CHECK_BLOCKS),
+          channels=list(FP_CHECK_CHANNELS),
+          launches_per_call=json.dumps(launched, separators=(",", ":")),
+          general_path_blocks=general, vs_fwd_blocks_int_ref="identical",
+          max_abs_err=err, tol=0, s=f"{time.perf_counter() - t0:.2f}")
+    return err
+
+
+def _fp_issue_bound(nc, nblocks, run, launches=1500):
+    """The issue bound of ``raht_fwd_blocks_int`` at ``nc`` channels: the
+    SASS instructions of its fast path a block (``cuobjdump -sass`` on the
+    built library: ``raht_fp_fast_block_count_c<nc>``, one block a thread
+    through the fast path, loads and stores included, every instruction
+    but NOPs once), one warp instruction serving 32 blocks, over the
+    card's 4 schedulers an SM issuing one warp instruction a cycle each at
+    the SM clock nvidia-smi reads while ``run`` keeps the card busy.
+    Returns (ms, instructions a block, MHz)."""
+    import torch
+
+    from mpeg_pcc_tmc13_tpu_torch.ops import _kernels
+    nvcc = _kernels._find_nvcc()
+    _check(nvcc is not None, "(m) no CUDA toolkit for cuobjdump")
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+         str(_kernels.library_path())], capture_output=True, text=True,
+        check=True).stdout
+    name = f"raht_fp_fast_block_count_c{nc}"
+    at = sass.find(f"Function : {name}")
+    _check(at >= 0, f"(m) cuobjdump shows no {name}")
+    end = sass.find("Function : ", at + 1)
+    body = sass[at:end if end > 0 else None]
+    per_block = sum(1 for op in re.findall(r"/\*[0-9a-f]{4}\*/\s+([^;]*);",
+                                           body)
+                    if not op.strip().startswith("NOP"))
+    for _ in range(launches):       # ~0.5 s of work for the clock to show
+        run()
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-i", str(torch.cuda.current_device())],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    warps = -(-nblocks // 32)
+    return per_block * warps / (sms * 4 * mhz * 1e6) * 1e3, per_block, mhz
 
 
 def _level_inputs(uniq, colors, depth, device):

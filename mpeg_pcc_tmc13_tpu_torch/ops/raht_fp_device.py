@@ -24,8 +24,10 @@ line for line from the reference module (its lines 38-153);
 The mesh's attribute stage, ``fwd_blocks_int`` (reference
 ``isqrt64_dev``/``fwd_blocks_int``, :292-329), computes the butterfly
 coefficients on the device from the block weights: a CUDA tensor
-launches the hand-written kernel of ``csrc/raht_fp_blocks.cu``, a CPU
-tensor runs its plain version ``fwd_blocks_int_ref``.
+launches the hand-written kernel of ``csrc/raht_fp_blocks.cu`` once per
+run of at most four channels, a CPU tensor runs its plain version
+``fwd_blocks_int_ref``.  The kernel's fast path is mirrored in plain
+torch beside it for the tests (``fwd_blocks_int_mirror``).
 
 Translation rules from the JAX form: ``jnp.floor_divide`` is
 ``torch.div(..., rounding_mode="floor")``; ``>>`` on int64 is
@@ -330,9 +332,12 @@ def _compact(acz, acy, acx, p):
 # from several threads
 LAUNCHES = {"fwd_blocks_int": 0}
 _COUNT_LOCK = threading.Lock()
-# the most channels one launch holds in its shared-memory tile
-# (csrc/raht_fp_blocks.cu: 128 blocks x (9 + 8C + 1) words in 227 KB)
-MAX_KERNEL_CHANNELS = 27
+# the most channels one launch takes (csrc/raht_fp_blocks.cu: kMaxRun);
+# more go through the kernel in runs, a launch each
+KERNEL_RUN_MAX = 4
+# the kernel's fast path: blocks whose weights are non-negative and sum
+# below this (csrc/raht_fp_blocks.cu: kFastLimit)
+FAST_WEIGHT_SUM = 1 << 22
 
 
 def reset_launch_counts() -> None:
@@ -359,17 +364,11 @@ def fwd_blocks_int_ref(blk_v: torch.Tensor, blk_w: torch.Tensor):
     ws)``, rounding by ``(x + QAH) >> QA``."""
 
     def stage(v, w):
-        v0, v1 = v[:, 0::2], v[:, 1::2]
         w0, w1 = w[:, 0::2], w[:, 1::2]
-        both = ((w0 > 0) & (w1 > 0))[..., None]
         ws = (w0 + w1).clamp(min=1)
-        a = isqrt64_dev(_floordiv(w0 << 30, ws))[..., None]
-        b = isqrt64_dev(_floordiv(w1 << 30, ws))[..., None]
-        dc = (a * v0 + b * v1 + QAH) >> QA
-        ac = (a * v1 - b * v0 + QAH) >> QA
-        single = torch.where((w0 > 0)[..., None], v0, v1)
-        return (torch.where(both, dc, single), torch.where(both, ac, 0),
-                w0 + w1)
+        a = isqrt64_dev(_floordiv(w0 << 30, ws))
+        b = isqrt64_dev(_floordiv(w1 << 30, ws))
+        return _mix_stage(v, w0, w1, a, b)
 
     vz, acz, wz = stage(blk_v, blk_w)
     vy, acy, wy = stage(vz, wz)
@@ -377,14 +376,129 @@ def fwd_blocks_int_ref(blk_v: torch.Tensor, blk_w: torch.Tensor):
     return vx[:, 0], acz, acy, acx
 
 
+def _mix_stage(v, w0, w1, a, b):
+    """One butterfly stage from its pair coefficients (int64 wrap-around,
+    arithmetic rounding shift): (passed values, ACs, merged weights)."""
+    v0, v1 = v[:, 0::2], v[:, 1::2]
+    both = ((w0 > 0) & (w1 > 0))[..., None]
+    a, b = a[..., None], b[..., None]
+    dc = (a * v0 + b * v1 + QAH) >> QA
+    ac = (a * v1 - b * v0 + QAH) >> QA
+    single = torch.where((w0 > 0)[..., None], v0, v1)
+    return (torch.where(both, dc, single), torch.where(both, ac, 0),
+            w0 + w1)
+
+
+# ---- the kernel's fast path, mirrored in plain torch (tests only) ------
+
+def isqrt_fast_mirror(q: torch.Tensor) -> torch.Tensor:
+    """The kernel's floor(sqrt(q)) for int64 q in [0, 2^30 + 1]: the fp32
+    square root of q rounded to fp32, truncated, then the two correction
+    rounds in 32-bit unsigned arithmetic (products kept mod 2^32)."""
+    y = torch.sqrt(q.to(torch.float32)).to(_I64)
+    m = 0xFFFFFFFF
+    for _ in range(2):
+        y = torch.where(((y + 1) * (y + 1)) & m <= q, y + 1, y)
+        y = torch.where((y * y) & m > q, y - 1, y)
+    return y
+
+
+def fast_pair_coeffs_mirror(w0: torch.Tensor, w1: torch.Tensor):
+    """The kernel's fast-path coefficients (a, b) of pairs with w0, w1 >= 0
+    and w0 + w1 < 2^22, int64 tensors: the quotient q_a of w0 2^30 / ws
+    from a float64 reciprocal-multiply truncated and one step against
+    its remainder (kept mod 2^32, as the kernel's int), q_b = 2^30 - q_a
+    - [r_a > 0] (0 when ws = 0), then ``isqrt_fast_mirror``.  Equal to
+    ``isqrt64_dev(floor((w << 30) / max(ws, 1)))`` for each."""
+    ws = w0 + w1
+    d = ws.clamp(min=1)
+    num = w0.to(torch.float64) * float(1 << 30)
+    q = torch.trunc(num * (1.0 / d.to(torch.float64))).to(_I64)
+    r = (w0 << 30) - q * d
+    r = ((r + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+    low = r < 0
+    q, r = torch.where(low, q - 1, q), torch.where(low, r + d, r)
+    high = r >= d
+    q, r = torch.where(high, q + 1, q), torch.where(high, r - d, r)
+    qb = torch.where(ws == 0, 0, (1 << 30) - q - (r > 0).to(_I64))
+    return isqrt_fast_mirror(q), isqrt_fast_mirror(qb)
+
+
+def fast_blocks(blk_w: torch.Tensor) -> torch.Tensor:
+    """(B,) bool: the blocks the kernel takes through its fast path."""
+    small = ((blk_w >= 0) & (blk_w < FAST_WEIGHT_SUM)).all(dim=1)
+    return small & (torch.where(small[:, None], blk_w, 0).sum(dim=1)
+                    < FAST_WEIGHT_SUM)
+
+
+def fwd_blocks_int_mirror(blk_v: torch.Tensor, blk_w: torch.Tensor):
+    """The kernel's arithmetic in plain torch: fast blocks take
+    ``fast_pair_coeffs_mirror``, the rest ``isqrt64_dev`` of the floor
+    division; the mix as ``fwd_blocks_int_ref`` (the kernel's 64x32-bit
+    products wrap as int64 does, so torch's int64 products equal them)."""
+    fast = fast_blocks(blk_w)[:, None]
+
+    def stage(v, w):
+        w0, w1 = w[:, 0::2], w[:, 1::2]
+        ws = (w0 + w1).clamp(min=1)
+        a = isqrt64_dev(_floordiv(w0 << 30, ws))
+        b = isqrt64_dev(_floordiv(w1 << 30, ws))
+        af, bf = fast_pair_coeffs_mirror(torch.where(fast, w0, 0),
+                                         torch.where(fast, w1, 0))
+        return _mix_stage(v, w0, w1, torch.where(fast, af, a),
+                          torch.where(fast, bf, b))
+
+    vz, acz, wz = stage(blk_v, blk_w)
+    vy, acy, wy = stage(vz, wz)
+    vx, acx, _ = stage(vy, wy)
+    return vx[:, 0], acz, acy, acx
+
+
+# ---- the wrapper -------------------------------------------------------
+
+def channel_runs(nchan: int):
+    """(start, width) runs of at most ``KERNEL_RUN_MAX`` channels, in
+    channel order, one launch each (5 -> 4+1, 28 -> 7 x 4)."""
+    return [(c, min(KERNEL_RUN_MAX, nchan - c))
+            for c in range(0, nchan, KERNEL_RUN_MAX)]
+
+
+def _in_channel_runs(run, blk_v: torch.Tensor, blk_w: torch.Tensor):
+    """``run(values, weights)`` over (B, 8, C) values in the runs of
+    ``channel_runs(C)``: a contiguous copy of each run's channels goes in,
+    its four outputs land in those channels (no copies for one run).
+    Right for any ``run`` that treats channels independently."""
+    nb, _, nc = blk_v.shape
+    runs = channel_runs(nc)
+    if len(runs) == 1:
+        return run(blk_v, blk_w)
+    out = (blk_v.new_empty(nb, nc), blk_v.new_empty(nb, 4, nc),
+           blk_v.new_empty(nb, 2, nc), blk_v.new_empty(nb, 1, nc))
+    for c0, n in runs:
+        part = run(blk_v[..., c0:c0 + n].contiguous(), blk_w)
+        for o, p in zip(out, part):
+            o[..., c0:c0 + n] = p
+    return out
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting on 16 bytes (the kernel's TMA bulk
+    copies): a view at an odd word offset is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def fwd_blocks_int(blk_v: torch.Tensor, blk_w: torch.Tensor):
     """blk_v (B, 8, C) int64 Q13 values, blk_w (B, 8) int64 subtree
     weights (0 = empty slot) -> (dc (B, C), acz (B, 4, C), acy (B, 2, C),
-    acx (B, 1, C)) int64.
+    acx (B, 1, C)) int64, any C >= 1 and any layout.
 
     A CPU tensor runs ``fwd_blocks_int_ref``; a CUDA tensor launches
     ``raht_fwd_blocks_int`` of ``csrc/raht_fp_blocks.cu`` (bit-identical
-    to it) or raises."""
+    to it), once per run of ``channel_runs(C)``, or raises.  The kernel's
+    domain is the plain version's: non-negative weights whose sum in a
+    block stays below 2^33, so no ``w << 30`` wraps; blocks whose weights
+    sum below 2^22 (every block of a real cloud) take its fast path."""
     dev = blk_v.device
     if dev.type == "cpu":
         return fwd_blocks_int_ref(blk_v, blk_w)
@@ -399,28 +513,29 @@ def fwd_blocks_int(blk_v: torch.Tensor, blk_w: torch.Tensor):
             or tuple(blk_w.shape) != tuple(blk_v.shape[:2])):
         raise ValueError(f"need values (B, 8, C) and weights (B, 8), got "
                          f"{tuple(blk_v.shape)} and {tuple(blk_w.shape)}")
-    if not (blk_v.is_contiguous() and blk_w.is_contiguous()):
-        raise ValueError("values and weights must be contiguous")
     nb, _, nc = blk_v.shape
-    if nc > MAX_KERNEL_CHANNELS:
-        raise ValueError(f"the kernel takes at most {MAX_KERNEL_CHANNELS} "
-                         f"channels, got {nc}")
-    out = (blk_v.new_empty(nb, nc), blk_v.new_empty(nb, 4, nc),
-           blk_v.new_empty(nb, 2, nc), blk_v.new_empty(nb, 1, nc))
     if nb == 0 or nc == 0:             # a grid of 0 is no valid launch
-        return out
+        return (blk_v.new_empty(nb, nc), blk_v.new_empty(nb, 4, nc),
+                blk_v.new_empty(nb, 2, nc), blk_v.new_empty(nb, 1, nc))
     lib = _kernels.load()
-    with torch.cuda.device(dev):
-        rc = lib.raht_fwd_blocks_int_launch(
-            blk_v.data_ptr(), blk_w.data_ptr(),
-            *(t.data_ptr() for t in out), nb, nc,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"raht_fwd_blocks_int launch failed: CUDA error "
-                           f"{rc}")
-    with _COUNT_LOCK:
-        LAUNCHES["fwd_blocks_int"] += 1
-    return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(v, w):
+        n = v.shape[2]
+        out = (v.new_empty(nb, n), v.new_empty(nb, 4, n),
+               v.new_empty(nb, 2, n), v.new_empty(nb, 1, n))
+        with torch.cuda.device(dev):
+            rc = lib.raht_fwd_blocks_int_launch(
+                v.data_ptr(), w.data_ptr(), *(t.data_ptr() for t in out),
+                nb, n, stream)
+        if rc != 0:
+            raise RuntimeError(f"raht_fwd_blocks_int launch failed: CUDA "
+                               f"error {rc}")
+        with _COUNT_LOCK:
+            LAUNCHES["fwd_blocks_int"] += 1
+        return out
+
+    return _in_channel_runs(launch, _aligned(blk_v), _aligned(blk_w))
 
 
 def _truth_level(vals, p):
