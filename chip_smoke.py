@@ -81,6 +81,20 @@ printed line:
       and 1 beside its byte bound and its issue bound (the fast path's
       SASS instructions a block from ``cuobjdump``, at the SM clock
       nvidia-smi reads under load),
+  (n) the evaluation layer (``scripts/``, ``tools/pc_error``) as a user
+      runs it, every failure fatal, each result pinned to what the
+      repo's JAX scripts give on a CPU from the same seeds: (n1)
+      ``gen_clouds`` writes the 1.22M-point surface and one 468k-point
+      LiDAR frame into ``data/`` (SHA-256 pinned); (n2) ``ctc_matrix``
+      on its default seeded cloud, the 14 families' CLI runs through
+      ``runtime.cli.main`` in this process and one decode in a CLI
+      process of its own (stream and decoded md5s pinned); (n3)
+      ``parity``, codec ``ours``, each CLI run a process, at r04 on
+      (n1)'s inputs for four conditions (stream bytes and bpp exact,
+      D1/D2/Y PSNR within ``PSNR_TOL_DB``), each row with its encode and
+      decode rates; (n4) ``mesh_scaling`` on every visible card, each
+      mesh size's payload bytes equal to the host engine's and pinned,
+      ``raht_fwd_blocks_int`` launched on the card,
   (f) timing: the stage times of a second (warm) round trip, and each
       kernel against its plain version at the shapes of (d) and (g):
       the pass through the wrappers (CUDA events), its device time (the
@@ -184,6 +198,72 @@ KERNELS = {
 MESH_SLICES = 8                 # (m): the bench cloud cut into 8 slices
 MESH_VALUE_SEED = 8             # (m4): its Q13 values
 PAIR_LAW_SAMPLE = 4096          # (m4): blocks held to raht_fp's pair law
+# (n): the evaluation layer.  Every pinned value below is what the repo's
+# own scripts (scripts/gen_clouds.py, ctc_matrix.py, parity.py and
+# mesh_scaling.py, on the JAX package) give on a CPU from the same seeds,
+# so the card's run is held to them without JAX on its machine.
+EVAL_DIR = REPO / "build" / "chip_smoke_eval"     # git-ignored
+DATA_DIR = REPO / "data"        # git-ignored; where parity reads its inputs
+GEN_CLOUDS = {                  # file: (gen_clouds arguments, SHA-256)
+    "surface_1m.ply": (("surface",), "3f06f00bd7b3043c40e7601db89e8a95"
+                                     "56e390f73716d28ffc976f2640f90407"),
+    "lidar_0000.ply": (("lidar",), "7419b88a6d3e4a42d8203f481ec648f2"
+                                   "892c24f6d98b2d853cf120d475034bc3"),
+}
+CTC_MATRIX_MD5 = {              # family: (stream md5, decoded PLY md5)
+    "octree-raht-lossless": ("30d335a79f1a81106b53cc73ca7e0097",
+                             "ff55831c9af70a9342ee3aa5e6af2cdc"),
+    "octree-raht-lossy": ("d13ddd7500bd7ac022d5466da1f08a78",
+                          "f8f1e3a2551d095db29943acb5af6dc0"),
+    "octree-predlift": ("23da03629c0e839b7c331f774ab3a242",
+                        "65ebc40aa0070d50224259cb10ce1c2b"),
+    "trisoup-raht": ("6b597a98ad3764b560a943838bf0babf",
+                     "b7b4c8a9af677e7a28fc3906f57c3cdc"),
+    "predgeom-angular": ("daac3e415307c07eb8f80970cf9eac5d",
+                         "97494be9d1d5eb300ad394149f5a7e28"),
+    "octree-inter-gm": ("81d44d4aa738190f76e7c825eaec61c3",
+                        "8473d5e504c583e4e991332c83113da1"),
+    "multistream-parent-ctx": ("62befc69ff1e6169dd6667d5c1c015de",
+                               "8473d5e504c583e4e991332c83113da1"),
+    "tiles-slices-qp": ("d9d9b320863cd0b7ad02246c0ef3f151",
+                        "cb8749141bdb7db9a599b8c3fae881a1"),
+    "bipred-attr-inter": ("6a2c5dbedc08e399320d77638ad12949",
+                          "ff55831c9af70a9342ee3aa5e6af2cdc"),
+    "obuf-planar": ("e13c357b152b7ba14cd60c652e39b17e",
+                    "8473d5e504c583e4e991332c83113da1"),
+    "planar-sparse-deep": ("ca2e702da88164c844be9d3771bef5a0",
+                           "8473d5e504c583e4e991332c83113da1"),
+    "idcm-deep": ("9afdfbd452e26ab8b0f48e872621f86a",
+                  "8473d5e504c583e4e991332c83113da1"),
+    "multislice-trisoup": ("df39725419eaa475554f14f2da3e17a7",
+                           "db90fa9e27d789aefcf7b6e7a7f1130f"),
+    "pernode-qp": ("e162c2251cff882c48b872e028cca2b8",
+                   "8473d5e504c583e4e991332c83113da1"),
+}
+CTC_SUBPROCESS_FAMILY = "octree-raht-lossy"    # (n2): decoded again by
+                                                # a CLI process
+PARITY_RATE = "r04"
+PARITY_R04 = {                  # codec "ours": the JAX harness's rows
+    "octree-lossy-geom": dict(
+        points=468416, bytes=115002, geom_bpp=1.9636903948626863,
+        attr_bpp=0.0, total_bpp=1.9641002869244433,
+        d1_psnr=70.90122625180814, d2_psnr=76.48915882329155, y_psnr=None),
+    "octree-angular": dict(
+        points=468416, bytes=103771, geom_bpp=1.7648756660746003,
+        attr_bpp=0.0, total_bpp=1.7722878808580407,
+        d1_psnr=71.6610457744783, d2_psnr=81.03064671016895, y_psnr=None),
+    "predgeom-angular": dict(
+        points=468416, bytes=452994, geom_bpp=7.729146741358109,
+        attr_bpp=0.0, total_bpp=7.736610192649269,
+        d1_psnr=73.97347342767388, d2_psnr=98.13607522881604, y_psnr=None),
+    "octree-raht-lossy": dict(
+        points=1222438, bytes=269400, geom_bpp=1.7529428895371382,
+        attr_bpp=0.009790271572055188, total_bpp=1.7630341988714355,
+        d1_psnr=67.97215891436048, d2_psnr=72.73135158841193,
+        y_psnr=34.956913344288594),
+}
+PSNR_TOL_DB = 1e-6
+MESH_GEOM_BYTES = {1: 295_535, 2: 303_730, 4: 315_408, 8: 330_295}
 
 
 def _line(tag, **kv):
@@ -1828,6 +1908,209 @@ def phase_f(device, uniq, depth, colors, rans, errs):
 # cudaMemcpyAsync and cudaStreamSynchronize), ``wdense[flags]`` an
 # aten::index that sizes its result with aten::nonzero, ``int(tensor)``
 # an aten::item over aten::_local_scalar_dense
+@contextlib.contextmanager
+def _repo_on_path():
+    """Put the repository on PYTHONPATH for the processes started inside
+    (the scripts start the CLI as ``python -m``)."""
+    old = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(REPO), old) if p)
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = old
+
+
+def _cli_in_process(cmd, capture_output=True, text=True):
+    """``subprocess.run`` of ``python -m <the port's CLI> args``, run by
+    ``runtime.cli.main`` in this process."""
+    from mpeg_pcc_tmc13_tpu_torch.runtime import cli
+    _check(cmd[1:3] == ["-m", "mpeg_pcc_tmc13_tpu_torch.runtime.cli"],
+           f"not the port's CLI: {cmd[:3]}")
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(list(cmd[3:]))
+    return subprocess.CompletedProcess(cmd, rc, out.getvalue(),
+                                       err.getvalue())
+
+
+def _host_geom_bytes(codes, n_slices, depth):
+    """Payload bytes of the host engine (native, PARENT contexts) over
+    ``partition_codes_padded``'s slices of ``codes``."""
+    from mpeg_pcc_tmc13_tpu_torch import host
+    from mpeg_pcc_tmc13_tpu_torch.models import geometry_octree as go
+    from mpeg_pcc_tmc13_tpu_torch.ops import octree
+    from mpeg_pcc_tmc13_tpu_torch.parallel import slices as par
+    from mpeg_pcc_tmc13_tpu_torch.utils import morton
+    total = 0
+    for row in par.partition_codes_padded(codes, n_slices):
+        enc = host.RangeEncoder()
+        go.encode(morton.decode(np.unique(row)), depth, enc,
+                  go.OctreeContexts(), unique_points=True, engine="native",
+                  need_order=False, ctx_mode=octree.CTX_MODE_PARENT)
+        total += len(enc.get_bytes())
+    return total
+
+
+def phase_n(device, smi):
+    """The evaluation layer, as a user runs it, every failure fatal:
+    (n1) the CTC-style inputs, (n2) the conformance matrix (its CLI runs
+    in this process, one decode in a process of its own), (n3) the parity
+    harness (codec ``ours``, each CLI run a process) at r04,
+    (n4) the mesh-scaling check on every visible card."""
+    import shutil
+
+    from mpeg_pcc_tmc13_tpu_torch import host
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp_device as fpd
+    from mpeg_pcc_tmc13_tpu_torch.scripts import ctc_matrix, gen_clouds
+    from mpeg_pcc_tmc13_tpu_torch.scripts import mesh_scaling, parity
+    from mpeg_pcc_tmc13_tpu_torch.utils import morton
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    EVAL_DIR.mkdir(parents=True)
+
+    # (n1) the surface and one LiDAR frame, byte for byte the reference
+    # generator's
+    DATA_DIR.mkdir(exist_ok=True)
+    for name, (kind, sha) in GEN_CLOUDS.items():
+        path = DATA_DIR / name
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            gen_clouds.main([*kind, str(DATA_DIR / name.replace(
+                "0000", "%04d"))])
+        secs = time.perf_counter() - t0
+        _check(_sha256(path) == sha,
+               f"(n1) {name}: sha256 {_sha256(path)}; the reference "
+               f"generator writes {sha}")
+        _line("n", stage="n1_gen_clouds", file=f"data/{name}",
+              written=out.getvalue().split(": ", 1)[1].strip().replace(
+                  " ", "_"),
+              bytes=path.stat().st_size, sha256="as_reference",
+              s=f"{secs:.2f}")
+
+    # (n2) the conformance matrix on its default seeded cloud.  Its
+    # 28 CLI runs go through ``runtime.cli.main`` in this process (a
+    # process start took ~8 s on an H100 machine's host), and one
+    # family's stream is decoded again by the command a user runs
+    work = EVAL_DIR / "ctc_matrix"
+    work.mkdir()
+    src = work / "in.ply"
+    ctc_matrix.synth_cloud(str(src))
+    real = ctc_matrix.subprocess
+    ctc_matrix.subprocess = SimpleNamespace(run=_cli_in_process)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = ctc_matrix.main([str(src), str(work)])
+    finally:
+        ctc_matrix.subprocess = real
+    secs = time.perf_counter() - t0
+    summary = json.loads(out.getvalue())
+    _check(rc == 0, f"(n2) ctc_matrix returned {rc}: {summary}")
+    sub = work / f"{CTC_SUBPROCESS_FAMILY}_subprocess.ply"
+    sub_s, _ = _cli_process(
+        ["--mode=1", f"--compressedStreamPath="
+         f"{work / (CTC_SUBPROCESS_FAMILY + '.bin')}",
+         f"--reconstructedDataPath={sub}"])
+    _check(ctc_matrix.md5(str(sub))
+           == CTC_MATRIX_MD5[CTC_SUBPROCESS_FAMILY][1],
+           f"(n2) the CLI process decoded {CTC_SUBPROCESS_FAMILY} to "
+           f"another PLY")
+    _check(summary["ok"], f"(n2) ctc_matrix: not ok: {summary}")
+    got = {k: (v.get("stream_md5"), v.get("decoded_md5"))
+           for k, v in summary["configs"].items()}
+    _check(got == CTC_MATRIX_MD5,
+           f"(n2) md5s differ from the JAX script's: "
+           f"{ {k: v for k, v in got.items() if CTC_MATRIX_MD5.get(k) != v} }")
+    cfgs = summary["configs"]
+    _line("n", stage="n2_ctc_matrix", families=len(cfgs),
+          points=host.ply.read(str(src)).count,
+          md5s=f"as_reference_x{len(cfgs)}",
+          lossless=sum(v["geom_lossless"] for v in cfgs.values()),
+          bytes=sum(v["bytes"] for v in cfgs.values()),
+          cli_user_s=json.dumps(
+              {k: [v["encode_s"], v["decode_s"]] for k, v in cfgs.items()},
+              separators=(",", ":")),
+          s=f"{secs:.1f}", subprocess_decode=CTC_SUBPROCESS_FAMILY,
+          subprocess_ply="as_reference", subprocess_s=f"{sub_s:.1f}")
+
+    # (n3) the parity harness, codec "ours", at r04 on (n1)'s inputs
+    out = EVAL_DIR / "parity"
+    t0 = time.perf_counter()
+    with _repo_on_path(), contextlib.redirect_stdout(io.StringIO()):
+        rows = parity.main(["--cond", *PARITY_R04, "--rates",
+                            PARITY_RATE, "--codecs", "ours",
+                            "--out", str(out)])
+    secs = time.perf_counter() - t0
+    for row in rows:
+        _check("error" not in row, f"(n3) {row}")
+        want = PARITY_R04[row["cond"]]
+        size = (out / "runs" / f"{row['cond']}.{PARITY_RATE}.ours.bin"
+                ).stat().st_size
+        for k in ("points", "geom_bpp", "attr_bpp", "total_bpp"):
+            _check(row[k] == want[k], f"(n3) {row['cond']} {k}: {row[k]!r},"
+                   f" the JAX harness gives {want[k]!r}")
+        _check(size == want["bytes"], f"(n3) {row['cond']}: {size} B, the "
+               f"JAX harness writes {want['bytes']} B")
+        for k in ("d1_psnr", "d2_psnr", "y_psnr"):
+            _check((row[k] is None) == (want[k] is None) and (
+                row[k] is None or abs(row[k] - want[k]) <= PSNR_TOL_DB),
+                f"(n3) {row['cond']} {k}: {row[k]!r}, the JAX harness "
+                f"gives {want[k]!r} (tol {PSNR_TOL_DB} dB)")
+        _line("n", stage="n3_parity", cond=row["cond"], rate=row["rate"],
+              codec=row["codec"], points=row["points"], bytes=size,
+              geom_bpp=row["geom_bpp"], attr_bpp=row["attr_bpp"],
+              d1_psnr=row["d1_psnr"], d2_psnr=row["d2_psnr"],
+              y_psnr=row["y_psnr"], vs_jax_harness="bytes_exact_psnr_1e-6",
+              enc_user_s=row["enc_user_s"], dec_user_s=row["dec_user_s"],
+              enc_mpts_user=row["enc_mpts"], dec_mpts_user=row["dec_mpts"],
+              enc_wall_s=f"{row['enc_wall_s']:.3f}",
+              dec_wall_s=f"{row['dec_wall_s']:.3f}",
+              enc_mpts_wall=f"{row['points'] / row['enc_wall_s'] / 1e6:.4f}",
+              dec_mpts_wall=f"{row['points'] / row['dec_wall_s'] / 1e6:.4f}",
+              card=repr(smi))
+    _check(sorted(r["cond"] for r in rows) == sorted(PARITY_R04),
+           f"(n3) rows for {[r['cond'] for r in rows]}")
+    _line("n", stage="n3_parity", rows=len(rows),
+          reports=",".join(sorted(p.name for p in out.iterdir()
+                                  if p.is_file())), s=f"{secs:.1f}")
+
+    # (n4) mesh scaling on every visible card: each mesh size's payload
+    # bytes equal the host engine's and the JAX script's
+    backend = None if device.type == "cuda" else "cpu"
+    fpd.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        mrows = mesh_scaling.main(backend)
+    secs = time.perf_counter() - t0
+    fp_launches = fpd.LAUNCHES["fwd_blocks_int"]
+    # two calls a mesh size (warm, timed), one launch a device each
+    _check(backend == "cpu" or fp_launches == 2 * sum(
+        r["devices"] for r in mrows),
+           f"(n4) raht_fwd_blocks_int launched {fp_launches} times over "
+           f"mesh sizes {[r['devices'] for r in mrows]}")
+    pos = np.random.default_rng(0).integers(0, 1 << 9, (200_000, 3),
+                                            dtype=np.int64)
+    codes = np.unique(morton.encode(pos))
+    _check(len(mrows) > 0 and [r["devices"] for r in mrows] == list(
+        mesh_scaling.mesh_sizes(backend)), f"(n4) mesh sizes {mrows}")
+    for r in mrows:
+        nd = r["devices"]
+        host_bytes = _host_geom_bytes(codes, nd, 9)
+        _check(r["geom_bytes"] == host_bytes == MESH_GEOM_BYTES[nd],
+               f"(n4) {nd} devices: {r['geom_bytes']} B, the host engine "
+               f"{host_bytes} B, the JAX script {MESH_GEOM_BYTES[nd]} B")
+        _line("n", stage="n4_mesh_scaling", **r,
+              vs_host_engine="identical", vs_jax_script="identical")
+    _line("n", stage="n4_mesh_scaling", sizes=len(mrows),
+          fwd_blocks_int_launches=fp_launches, s=f"{secs:.1f}",
+          phase_s=f"{time.perf_counter() - t_phase:.1f}", card=repr(smi))
+
+
 SYNC_CALLS = ("aten::_local_scalar_dense", "aten::item", "aten::nonzero",
               "aten::index", "aten::_to_copy", "cudaMemcpyAsync",
               "cudaStreamSynchronize", "cudaDeviceSynchronize")
@@ -2018,6 +2301,7 @@ def main() -> int:
         device, uniq, BENCH_DEPTH, colors, smi)
     launches.update(m_launches)
     errs.update(m_errs)
+    phase_n(device, smi)                                       # (n)
     times, chain_ms = phase_f(device, uniq, BENCH_DEPTH,       # (f)
                               colors, rans, errs)
     times.update(m_times)

@@ -81,6 +81,24 @@ def test_no_module_imports_jax_or_the_reference():
         assert os.path.join("parallel", name) in scanned, name
     assert "mpeg_pcc_tmc13_tpu_torch.utils.device" in _imports(
         os.path.join(PKG, "parallel", "slices.py"))
+    # and the evaluation layer: the scripts, pc_error, the OBUF mirror
+    for name in ("__init__.py", "gen_clouds.py", "ctc_matrix.py",
+                 "parity.py", "gen_ctc_cfg.py", "collate_logs.py",
+                 "mesh_scaling.py"):
+        assert os.path.join("scripts", name) in scanned, name
+    assert os.path.join("tools", "pc_error.py") in scanned
+    assert os.path.join("ops", "octree_obuf.py") in scanned
+    mods = _imports(os.path.join(PKG, "scripts", "parity.py"))
+    assert "mpeg_pcc_tmc13_tpu_torch.tools" in mods
+    assert "mpeg_pcc_tmc13_tpu_torch.scripts.gen_clouds" in mods
+
+
+def test_roundtrip_script_drives_the_ports_cli():
+    """The shell step (not scanned above) runs ``tmc3-cuda``'s module."""
+    with open(os.path.join(PKG, "scripts", "roundtrip.sh")) as f:
+        text = f.read()
+    assert 'CLI="python -m mpeg_pcc_tmc13_tpu_torch.runtime.cli"' in text
+    assert "mpeg_pcc_tmc13_tpu." not in text
 
 
 def test_native_library_is_the_ports_own():
@@ -274,3 +292,106 @@ def test_conformance_load_binds_the_ports_library(monkeypatch):
     monkeypatch.setattr(tentropy, "_LIB", None)
     with pytest.raises(RuntimeError, match="did not build"):
         tdec._load()
+
+
+# -- the evaluation scripts with the reference blocked ---------------------
+
+# installed in every process started with this directory on PYTHONPATH
+# (the script below and each CLI process the conformance matrix starts)
+_BLOCKER = textwrap.dedent("""
+    import os
+    import sys
+
+    class _NoReference:
+        def find_spec(self, name, path=None, target=None):
+            if (name in ("jax", "mpeg_pcc_tmc13_tpu")
+                    or name.startswith(("jax.", "jaxlib",
+                                        "mpeg_pcc_tmc13_tpu."))):
+                raise ModuleNotFoundError("blocked: " + name)
+            return None
+
+    sys.meta_path.insert(0, _NoReference())
+    with open(os.environ["BLOCKED_LOG"], "a") as f:
+        f.write(str(os.getpid()) + "\\n")
+""")
+
+_EVAL_SCRIPT = textwrap.dedent("""
+    import contextlib
+    import io
+    import json
+    import sys
+
+    from mpeg_pcc_tmc13_tpu_torch.scripts import ctc_matrix
+    from mpeg_pcc_tmc13_tpu_torch.tools import pc_error
+
+    src, work, families = sys.argv[1], sys.argv[2], sys.argv[3].split(",")
+    ctc_matrix.CONFIGS = {k: ctc_matrix.CONFIGS[k] for k in families}
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = ctc_matrix.main([src, work])
+    summary = json.loads(out.getvalue())
+    assert rc == 0 and summary["ok"], summary
+    rec = work + "/" + families[0] + ".ply"
+    assert pc_error.main(["--fileA", src, "--fileB", rec,
+                          "--resolution", "511"]) == 0
+    assert not any(m.split(".")[0] in ("jax", "jaxlib", "mpeg_pcc_tmc13_tpu")
+                   for m in sys.modules)
+    print(json.dumps(summary))
+""")
+
+_BLOCKED_FAMILIES = ("octree-raht-lossy", "octree-predlift",
+                     "predgeom-angular")
+
+
+def test_evaluation_scripts_run_with_jax_blocked(tmp_path):
+    """With jax and the JAX package blocked in every process, the port's
+    conformance matrix (three families, each CLI in a process of its
+    own) and pc_error run on a tiny cloud: the md5s are the JAX CLI's,
+    the PSNR lines the reference tool's."""
+    import contextlib
+    import importlib.util
+    import io
+    import json
+
+    from mpeg_pcc_tmc13_tpu.runtime import cli as jcli
+    from mpeg_pcc_tmc13_tpu_torch.scripts import ctc_matrix
+    blocker = tmp_path / "blocker"
+    blocker.mkdir()
+    (blocker / "sitecustomize.py").write_text(_BLOCKER)
+    log = tmp_path / "blocked.log"
+    src = tmp_path / "in.ply"
+    ctc_matrix.synth_cloud(str(src), n=400, depth=9, seed=5)
+    work = tmp_path / "work"
+    env = dict(os.environ, BLOCKED_LOG=str(log),
+               PYTHONPATH=os.pathsep.join([str(blocker), REPO]))
+    res = subprocess.run(
+        [sys.executable, "-c", _EVAL_SCRIPT, str(src), str(work),
+         ",".join(_BLOCKED_FAMILIES)], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    # the script's own process and the two CLI processes of every family
+    assert len(log.read_text().split()) == 1 + 2 * len(_BLOCKED_FAMILIES)
+    lines = res.stdout.strip().splitlines()
+    summary = json.loads(lines[-1])
+    for name in _BLOCKED_FAMILIES:
+        bin_path, rec = tmp_path / f"{name}.bin", tmp_path / f"{name}.ply"
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert jcli.main(["--mode=0", f"--uncompressedDataPath={src}",
+                              f"--compressedStreamPath={bin_path}",
+                              *ctc_matrix.CONFIGS[name]["args"]]) == 0
+            assert jcli.main(["--mode=1", f"--compressedStreamPath={bin_path}",
+                              f"--reconstructedDataPath={rec}"]) == 0
+        got = summary["configs"][name]
+        assert got["stream_md5"] == ctc_matrix.md5(str(bin_path)), name
+        assert got["decoded_md5"] == ctc_matrix.md5(str(rec)), name
+    spec = importlib.util.spec_from_file_location(
+        "reference_pc_error", os.path.join(REPO, "tools", "pc_error.py"))
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert ref.main(["--fileA", str(src), "--fileB",
+                         str(work / f"{_BLOCKED_FAMILIES[0]}.ply"),
+                         "--resolution", "511"]) == 0
+    assert "\n".join(lines[:-1]).endswith(out.getvalue().strip())
+    assert "mseF,PSNR (p2plane)" in out.getvalue()
