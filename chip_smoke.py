@@ -95,6 +95,16 @@ printed line:
       decode rates; (n4) ``mesh_scaling`` on every visible card, each
       mesh size's payload bytes equal to the host engine's and pinned,
       ``raht_fwd_blocks_int`` launched on the card,
+  (o) the port's benchmark as a user runs it (``python -m
+      mpeg_pcc_tmc13_tpu_torch.bench``, a process of its own, its last
+      line parsed): every key of ``BENCH_r05.json``'s line but
+      ``device_attr_error``, the ``device_attr_*`` lanes and
+      ``device_geom_rt_mpts``, no ``*_error`` key, its sizes equal to
+      the TPU run's (``BENCH_SIZES``, which the JAX package gives on a
+      CPU too) and ``device_attr_bpp`` to the JAX package's on a CPU,
+      ``device_numerics_ok`` and ``device_attr_ok`` true; then
+      ``entry.entry()`` on the default CUDA device, its outputs' SHA-256
+      equal to the JAX ``__graft_entry__.entry()``'s on a CPU,
   (f) timing: the stage times of a second (warm) round trip, and each
       kernel against its plain version at the shapes of (d) and (g):
       the pass through the wrappers (CUDA events), its device time (the
@@ -116,6 +126,7 @@ It imports no jax.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -264,6 +275,23 @@ PARITY_R04 = {                  # codec "ours": the JAX harness's rows
 }
 PSNR_TOL_DB = 1e-6
 MESH_GEOM_BYTES = {1: 295_535, 2: 303_730, 4: 315_408, 8: 330_295}
+# (o): the sizes bench.py printed on the TPU (BENCH_r05.json), which the
+# JAX package's host lanes give on a CPU as well: 993,881 B of rANS and
+# 1,835,052 raw link bytes over 889,682 points among them
+BENCH_SIZES = {"geom_bpp": 7.37, "raht_bpp": 2.46, "obuf_bpp": 6.474,
+               "rans_bpp": 8.937, "link_bytes_per_point": 2.06}
+# 307,541 B over 889,682 points: the JAX DeviceFpRaht on a CPU from the
+# same seeds (bench.py's device lane, never run on the TPU)
+DEVICE_ATTR_BPP = 2.765
+# the lanes BENCH_r05.json's line lacks
+BENCH_PORT_KEYS = ("device_attr_plan_s", "device_attr_encode_mpts",
+                   "device_attr_bpp", "device_attr_decode_mpts",
+                   "device_attr_ok", "device_geom_rt_mpts")
+BENCH_TIMEOUT_S = 600
+# SHA-256 of __graft_entry__.entry()'s valid outputs (compact[:total],
+# then counts, int32) from the JAX package on a CPU
+ENTRY_SHA256 = ("cb4e170c7d14cba7ff739354aa07d6ba"
+                "9ada8cab06bca4363096f60b0a1d0a4a")
 
 
 def _line(tag, **kv):
@@ -2111,6 +2139,64 @@ def phase_n(device, smi):
           phase_s=f"{time.perf_counter() - t_phase:.1f}", card=repr(smi))
 
 
+def entry_sha256(compact, counts):
+    """SHA-256 of ``entry()``'s outputs: the compacted entries, then the
+    per-level counts, as int32 bytes."""
+    return hashlib.sha256(
+        compact.cpu().numpy().astype(np.int32).tobytes()
+        + counts.cpu().numpy().astype(np.int32).tobytes()).hexdigest()
+
+
+def phase_o(smi):
+    """The port's benchmark as a user runs it, in a process of its own,
+    its line held to the pins; then the single-card ``entry()`` on the
+    default CUDA device, held to the JAX entry's hash."""
+    import torch
+
+    from mpeg_pcc_tmc13_tpu_torch.entry import entry
+
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "mpeg_pcc_tmc13_tpu_torch.bench"], cwd=REPO,
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    _check(res.returncode == 0, f"(o) the bench exited {res.returncode}: "
+           f"{res.stderr[-3000:]}")
+    lines = res.stdout.strip().splitlines()
+    _check(lines, f"(o) the bench printed nothing: {res.stderr[-3000:]}")
+    got = json.loads(lines[-1])
+    with open(REPO / "BENCH_r05.json") as f:
+        tpu_keys = set(json.load(f)["parsed"]) - {"device_attr_error"}
+    missing = sorted((tpu_keys | set(BENCH_PORT_KEYS)) - set(got))
+    _check(not missing, f"(o) the bench line lacks {missing}")
+    errors = sorted(k for k in got if k.endswith("_error"))
+    _check(not errors, f"(o) the bench line has {errors}")
+    for key, pin in (*BENCH_SIZES.items(),
+                     ("device_attr_bpp", DEVICE_ATTR_BPP)):
+        _check(got[key] == pin, f"(o) {key} {got[key]}, pinned {pin}")
+    _check(got["device_numerics_ok"] is True and got["device_attr_ok"] is True,
+           f"(o) device_numerics_ok {got['device_numerics_ok']}, "
+           f"device_attr_ok {got['device_attr_ok']}")
+    _check(got["device"] == torch.cuda.get_device_name(0),
+           f"(o) the bench ran on {got['device']!r}")
+    _line("o", stage="bench", wall_s=f"{wall:.1f}", sizes="pinned",
+          card=repr(smi))
+    print("[o] bench " + json.dumps(got), flush=True)
+
+    fn, (codes,) = entry()
+    _check(codes.device.type == "cuda", f"(o) entry() put its codes on "
+           f"{codes.device}")
+    t0 = time.perf_counter()
+    compact, counts = fn(codes)
+    sha = entry_sha256(compact, counts)
+    secs = time.perf_counter() - t0
+    _check(sha == ENTRY_SHA256, f"(o) entry() outputs hash to {sha}, the "
+           f"JAX entry's to {ENTRY_SHA256}")
+    _line("o", stage="entry", device=str(codes.device),
+          nodes=compact.shape[0], first_call_s=f"{secs:.3f}",
+          vs_jax_entry="identical", card=repr(smi))
+
+
 SYNC_CALLS = ("aten::_local_scalar_dense", "aten::item", "aten::nonzero",
               "aten::index", "aten::_to_copy", "cudaMemcpyAsync",
               "cudaStreamSynchronize", "cudaDeviceSynchronize")
@@ -2302,6 +2388,7 @@ def main() -> int:
     launches.update(m_launches)
     errs.update(m_errs)
     phase_n(device, smi)                                       # (n)
+    phase_o(smi)                                               # (o)
     times, chain_ms = phase_f(device, uniq, BENCH_DEPTH,       # (f)
                               colors, rans, errs)
     times.update(m_times)

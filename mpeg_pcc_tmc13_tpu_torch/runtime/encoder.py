@@ -681,11 +681,15 @@ class FrameEncoder:
             shard_devs = None
             if p.shard_devices > 1:
                 import torch
-                if not torch.cuda.is_available():
+                if torch.cuda.is_available():
+                    shard_devs = list(range(min(p.shard_devices,
+                                                torch.cuda.device_count())))
+                elif p.engine in ("device", "rans"):
                     raise NoDeviceError(
                         "shardDevices > 1 needs CUDA devices; none found")
-                shard_devs = list(range(min(p.shard_devices,
-                                            torch.cuda.device_count())))
+                # else: host engines only, so the workers run unplaced
+                # (the reference's jax.devices() are then CPU devices;
+                # the bytes are the same)
 
             def work(i):
                 w = _copy.copy(self)

@@ -261,12 +261,30 @@ def test_device_engines_refuse_without_cuda(no_cuda, frames, tmp_path,
                     f"--reconstructedDataPath={tmp_path / 'r.ply'}"])
 
 
-def test_shard_devices_refuses_without_cuda(no_cuda, frames):
-    cloud = jcli._ply_to_cloud(ply.read(str(frames / "f0000.ply")))
-    enc = tenc.FrameEncoder(tenc.EncoderParams(max_points_per_slice=1000,
-                                               shard_devices=2))
-    with pytest.raises(NoDeviceError, match="shardDevices"):
-        enc.compress(cloud, lambda b: None)
+@pytest.mark.parametrize("engine", ["auto", "native", "device", "rans"])
+def test_shard_devices_refuses_without_cuda(no_cuda, frames, tmp_path,
+                                            engine):
+    """Without CUDA, --shardDevices=2 runs host engines' slice workers
+    unplaced and writes tmc3-tpu's bytes and PLY (the reference places
+    them on its CPU devices); the device engines are still refused."""
+    if engine in ("device", "rans"):
+        cloud = jcli._ply_to_cloud(ply.read(str(frames / "f0000.ply")))
+        enc = tenc.FrameEncoder(tenc.EncoderParams(
+            max_points_per_slice=1000, shard_devices=2, engine=engine))
+        with pytest.raises(NoDeviceError, match="shardDevices"):
+            enc.compress(cloud, lambda b: None)
+        return
+    flags = ["--sliceMaxPoints=1000", "--shardDevices=2",
+             f"--geomEngine={engine}", "--attribute=color"]
+    src = frames / "f0000.ply"
+    port, port_rec = _encode_decode(tcli, src, "t_" + engine, flags, tmp_path)
+    ref, ref_rec = _encode_decode(jcli, src, "j_" + engine, flags, tmp_path)
+    assert len(port) > 0 and port == ref
+    # the same bytes as the sequential encode
+    seq, _ = _encode_decode(tcli, src, "seq", flags[:1] + flags[2:], tmp_path)
+    assert seq == port
+    assert (tmp_path / (port_rec.name % 0)).read_bytes() == (
+        tmp_path / (ref_rec.name % 0)).read_bytes()
 
 
 def test_shard_devices_refuses_an_explicit_device(frames, tmp_path,

@@ -154,6 +154,20 @@ _JAX_BLOCKED = textwrap.dedent("""
         streams.append(enc.get_bytes())
     assert streams[0] == streams[1]
 
+    # the benchmark's every lane at a tiny size, and the entry point
+    import contextlib
+    import io
+    from mpeg_pcc_tmc13_tpu_torch import bench
+    from mpeg_pcc_tmc13_tpu_torch.entry import entry
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert bench.main(["--device=cpu", "--points=3000",
+                           "--depth=6"]) == 0
+    line = json.loads(out.getvalue())
+    assert line["device_attr_ok"] and line["device_numerics_ok"]
+    fn, args = entry(device="cpu")
+    assert int(fn(*args)[1].sum()) > 4096
+
     # the multi-device layer's dry run, on a host mesh of two entries
     from mpeg_pcc_tmc13_tpu_torch.parallel.dryrun import dryrun_multichip
     dryrun_multichip(2, backend="cpu")
@@ -185,8 +199,9 @@ _BLOCKED_REF_SYNTAX = {"ref_syntax_raht": [
 
 def test_port_runs_with_jax_blocked(tmp_path):
     """With jax and the JAX package blocked, the port's round trip, its
-    geometry engines, the multi-device dry run and its CLI run; the CLI's streams and decoded PLYs
-    are the JAX CLI's, byte for byte."""
+    geometry engines, its benchmark and entry point, the multi-device dry
+    run and its CLI run; the CLI's streams and decoded PLYs are the JAX
+    CLI's, byte for byte."""
     from test_torch_cli import FLAG_SETS, _encode_decode, _write_frame
 
     from mpeg_pcc_tmc13_tpu.runtime import cli as jcli

@@ -17,6 +17,8 @@ import torch
 
 from mpeg_pcc_tmc13_tpu.bitstream import entropy as jentropy
 from mpeg_pcc_tmc13_tpu.models import geometry_octree as jgo
+from mpeg_pcc_tmc13_tpu_torch import bench as tbench
+from mpeg_pcc_tmc13_tpu_torch import entry as tentry
 from mpeg_pcc_tmc13_tpu_torch.bitstream import entropy as tentropy
 from mpeg_pcc_tmc13_tpu_torch.models import geometry_octree as tgo
 from mpeg_pcc_tmc13_tpu_torch.ops import octree as tops
@@ -88,6 +90,13 @@ def test_no_module_imports_jax_or_the_reference():
         assert os.path.join("scripts", name) in scanned, name
     assert os.path.join("tools", "pc_error.py") in scanned
     assert os.path.join("ops", "octree_obuf.py") in scanned
+    # and the benchmark and the single-card entry point
+    for name in ("bench.py", "entry.py"):
+        assert name in scanned, name
+    assert "mpeg_pcc_tmc13_tpu_torch.runtime.roundtrip" in _imports(
+        os.path.join(PKG, "bench.py"))
+    assert "mpeg_pcc_tmc13_tpu_torch.parallel.dryrun" in _imports(
+        os.path.join(PKG, "entry.py"))
     mods = _imports(os.path.join(PKG, "scripts", "parity.py"))
     assert "mpeg_pcc_tmc13_tpu_torch.tools" in mods
     assert "mpeg_pcc_tmc13_tpu_torch.scripts.gen_clouds" in mods
@@ -243,6 +252,8 @@ def _entry_points():
         "make_mesh": lambda: pslices.make_mesh(2),
         "devices_for": lambda: pframe.devices_for(2),
         "dryrun_multichip": lambda: dryrun_multichip(2),
+        "bench.main": lambda: tbench.main(["--points=400", "--depth=4"]),
+        "entry": lambda: tentry.entry(),
     }
 
 
@@ -250,7 +261,8 @@ def _entry_points():
                                   "decode_pipelined", "forward_device",
                                   "inverse_device", "DeviceFpRaht",
                                   "make_mesh", "devices_for",
-                                  "dryrun_multichip"])
+                                  "dryrun_multichip", "bench.main",
+                                  "entry"])
 def test_entry_point_needs_a_device(name, monkeypatch):
     """Called without ``device`` an entry point takes the current CUDA
     device; with none present it raises instead of running on the host."""
