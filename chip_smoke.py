@@ -19,8 +19,18 @@ printed line:
   (d) the device round trip at the bench size (1M-point surface cloud,
       depth 11, qp 22): geometry encode/decode, fixed-point RAHT colour
       encode/decode, the float RAHT lane, each checked against its
-      reference, with the kernels' launch counts from this run; first,
+      reference, with the kernels' launch counts from this run (the
+      block kernels and the headline path's four: the occupancy pass,
+      the expansion, the truth levels and the coded groups); first,
       the entry points called without a device run on ``cuda:0``,
+  (p) the headline path's four kernels against their plain versions at
+      the bench cloud's shapes, every level and group, max abs
+      difference 0: ``octree_occ_u8`` at the pipeline's cap and at an
+      undersized one, the expansion level by level and as
+      ``decode_expand_stream``, ``raht_fp_truth_level`` at each truth
+      level and ``raht_fp_group`` at each encode and decode group called
+      alone, then both as ``DeviceFpRaht`` runs them against the plain
+      loop on one plan,
   (e) a depth-21 geometry round trip (the 63-bit Morton domain),
   (g) the rANS brick at the bench size through ``models.geometry_rans``
       (one table-pass launch and one emission per encode, one decode
@@ -106,7 +116,7 @@ printed line:
       ``entry.entry()`` on the default CUDA device, its outputs' SHA-256
       equal to the JAX ``__graft_entry__.entry()``'s on a CPU,
   (f) timing: the stage times of a second (warm) round trip, and each
-      kernel against its plain version at the shapes of (d) and (g):
+      kernel against its plain version at the shapes of (d), (g) and (p):
       the pass through the wrappers (CUDA events), its device time (the
       pass replayed as a CUDA graph), the largest level alone for the
       block kernels, each kernel's bound and, for the rANS kernels, the
@@ -205,6 +215,14 @@ KERNELS = {
                      "mpeg_pcc_tmc13_tpu/ops/octree_rans.py:353"),
     "fwd_blocks_int": ("raht_fwd_blocks_int", "raht_fp_blocks.cu",
                        "mpeg_pcc_tmc13_tpu/ops/raht_fp_device.py:303"),
+    "octree_occ_u8": ("octree_occ_u8", "octree_levels.cu",
+                      "mpeg_pcc_tmc13_tpu/ops/octree.py:417"),
+    "octree_expand": ("octree_expand_level", "octree_levels.cu",
+                      "mpeg_pcc_tmc13_tpu/ops/octree.py:601"),
+    "raht_fp_truth_level": ("raht_fp_truth_level", "raht_fp_loop.cu",
+                            "mpeg_pcc_tmc13_tpu/ops/raht_fp_device.py:335"),
+    "raht_fp_group": ("raht_fp_group", "raht_fp_loop.cu",
+                      "mpeg_pcc_tmc13_tpu/ops/raht_fp_device.py:342"),
 }
 MESH_SLICES = 8                 # (m): the bench cloud cut into 8 slices
 MESH_VALUE_SEED = 8             # (m4): its Q13 values
@@ -451,14 +469,21 @@ def phase_d(device, uniq, depth, colors, qp=BENCH_QP):
     from mpeg_pcc_tmc13_tpu_torch.models.attr_raht import qp_to_step_q16
     from mpeg_pcc_tmc13_tpu_torch.models.geometry_octree import \
         OctreeContexts
+    from mpeg_pcc_tmc13_tpu_torch.ops import octree
     from mpeg_pcc_tmc13_tpu_torch.ops import raht_blocks as rb
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp_device as fpd
     from mpeg_pcc_tmc13_tpu_torch.runtime import device_pipeline as dp
     from mpeg_pcc_tmc13_tpu_torch.runtime import roundtrip as rt
 
     _default_device_check(device)
     rb.reset_launch_counts()
+    octree.reset_launch_counts()
+    fpd.reset_launch_counts()
     r = rt.device_roundtrip(uniq, depth, colors, qp=qp, device=device)
     launches = dict(rb.LAUNCHES)
+    launches.update(octree.LAUNCHES)
+    launches.update((k, fpd.LAUNCHES[k]) for k in ("raht_fp_truth_level",
+                                                   "raht_fp_group"))
 
     # geometry: the same port code on CPU tensors gives the same stream
     enc = host.RangeEncoder()
@@ -544,6 +569,172 @@ def phase_e(device, n=DEEP_POINTS, depth=DEEP_DEPTH):
            "depth-21 round trip is not exact")
     _line("e", points=uniq.size, depth=depth, nodes=total,
           bytes_vs_build_levels_np="identical", roundtrip="exact")
+
+
+def _equal_or_fail(name, got, want, where):
+    """Max abs difference of two output tuples; fails unless every
+    output is identical."""
+    import torch
+    got, want = _as_tuple(got), _as_tuple(want)
+    err = _max_abs_diff(zip(got, want))
+    _check(len(got) == len(want) and all(
+        g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
+        for g, w in zip(got, want)),
+        f"{name} differs from its plain version {where}: max abs {err}")
+    return err
+
+
+def _fp_level_inputs(dv, vals):
+    """The inputs of every truth level and every encode and decode group
+    of ``dv`` on ``vals`` (N, C) int64, propagated with the plain
+    versions on the card: [(args, kwargs)] each."""
+    import torch
+
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp_device as fpd
+    truth, enc, dec = [], [], []
+    cur = vals << fpd.F
+    acs = []
+    for p in dv.plans:
+        truth.append(((cur, p), {}))
+        cur, z, y, x = fpd._truth_level_ref(cur, p)
+        acs.append((z, y, x))
+    recon = fpd._dequant(fpd._quant(cur, dv.steps), dv.steps)
+    grand = torch.zeros(dv.n_roots, dtype=torch.int64, device=vals.device)
+    for gi in range(dv.depth):
+        p = dv.plans[dv.depth - 1 - gi]
+        kw = dv._group_kw(gi)
+        args = (recon, grand, *acs[dv.depth - 1 - gi], dv.steps, p)
+        enc.append((args, kw))
+        qz, qy, qx, rc, gr = fpd._enc_group_ref(*args, **kw)
+        dec.append(((recon, grand, qz, qy, qx, dv.steps, p), kw))
+        recon, grand = rc, gr
+    return truth, enc, dec
+
+
+def _expand_inputs(occ_u8, counts, depth, nmax):
+    """Every level's (nodes, occ) inputs of the decoder expansion, from
+    the plain version's chain on the card (occ int64, zero past the
+    level's count, as the rANS decoder passes it)."""
+    import torch
+
+    from mpeg_pcc_tmc13_tpu_torch.ops import octree
+    dev = occ_u8.device
+    tabs = (octree._nth_set_bit_table(dev), octree._popcount8_table(dev))
+    row = torch.arange(nmax, dtype=torch.int64, device=dev)
+    offs = torch.cumsum(counts, 0) - counts
+    nodes = torch.full((nmax,), octree.I64_MAX, dtype=torch.int64,
+                       device=dev)
+    nodes[0] = 0
+    out = []
+    for l in range(depth):
+        idx = (offs[l] + row).clamp(max=occ_u8.shape[0] - 1)
+        occ = torch.where(row < counts[l], occ_u8[idx].to(torch.int64), 0)
+        out.append((nodes, occ, nmax))
+        nodes = octree._expand_level_ref(nodes, occ, nmax, *tabs)[0]
+    return out, tabs
+
+
+def phase_p(device, uniq, depth, colors, qp=BENCH_QP):
+    """The headline path's four kernels against their plain versions on
+    the card at the bench cloud's shapes, every level and group, max abs
+    difference 0: ``octree_occ_u8`` at the pipeline's cap and at an
+    undersized one (bytes below the cap and whole counts); the
+    expansion per level (``_expand_level``, the rANS decoder's form) and
+    as ``decode_expand_stream`` (the pipeline's form, every level in one
+    call); ``raht_fp_truth_level`` at each of the 11 levels and
+    ``raht_fp_group`` at each of the 11 encode and 11 decode groups,
+    called alone (the parents' means computed per read), then both as
+    ``DeviceFpRaht`` runs them (the roots (de)quantised in the first
+    group, the means handed on, the last decode group shifting out the
+    fraction) against the plain loop on one plan.  Returns the max abs
+    differences and the inputs (f) times."""
+    import torch
+
+    from mpeg_pcc_tmc13_tpu_torch.models.attr_raht import qp_to_step_q16
+    from mpeg_pcc_tmc13_tpu_torch.ops import octree
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp_device as fpd
+
+    t_phase = time.perf_counter()
+    errs = {}
+    n = uniq.size
+    codes = torch.as_tensor(uniq, device=device)
+    cap = max(64, int(n * 2.3)) & ~63
+    want = octree.encode_occ_u8_hdr_ref(codes, depth, cap)
+    counts = want[:4 * depth].view(torch.int32).to(torch.int64)
+    total = int(counts.sum())
+    if total > cap:                    # the pipeline's retry, larger
+        cap = max(64, int(total * 1.25)) & ~63
+        want = octree.encode_occ_u8_hdr_ref(codes, depth, cap)
+    errs["octree_occ_u8"] = _equal_or_fail(
+        "octree_occ_u8", octree.encode_occ_u8_hdr(codes, depth, cap), want,
+        "at the pipeline's cap")
+    small = total // 2
+    got = octree.encode_occ_u8(codes, depth, small)
+    errs["octree_occ_u8"] = max(errs["octree_occ_u8"], _equal_or_fail(
+        "octree_occ_u8", got, octree.encode_occ_u8_ref(codes, depth, small),
+        f"at an undersized cap ({small} of {total} nodes)"))
+    _check(int(got[1].to(torch.int64).sum()) == total,
+           "undersized cap: the counts are not whole")
+    occ_u8 = want[4 * depth:4 * depth + total].contiguous()
+    levels, tabs = _expand_inputs(occ_u8, counts, depth, n)
+    errs["octree_expand"] = max(
+        _equal_or_fail("octree_expand", octree._expand_level(*a),
+                       octree._expand_level_ref(*a, *tabs), f"at level {l}")
+        for l, a in enumerate(levels))
+    counts32 = counts.to(torch.int32)
+    stream = (occ_u8, counts32, depth, n)
+    got = octree.decode_expand_stream(*stream)
+    errs["octree_expand"] = max(errs["octree_expand"], _equal_or_fail(
+        "octree_expand", got, octree.decode_expand_stream_ref(*stream),
+        "as decode_expand_stream"))
+    _check(np.array_equal(got[0][:n].cpu().numpy(), uniq),
+           "the expansion does not give the input codes back")
+
+    steps = [qp_to_step_q16(qp)] * colors.shape[1]
+    t0 = time.perf_counter()
+    dv = fpd.DeviceFpRaht(uniq, depth, steps, device=device)
+    plan_s = time.perf_counter() - t0
+    vals = torch.as_tensor(colors, dtype=torch.int64, device=device)
+    truth, enc, dec = _fp_level_inputs(dv, vals)
+    for key, kern, ref, cases in (
+            ("raht_fp_truth_level", fpd._truth_level, fpd._truth_level_ref,
+             truth),
+            ("raht_fp_group", fpd._enc_group, fpd._enc_group_ref, enc),
+            ("raht_fp_group", fpd._dec_group, fpd._dec_group_ref, dec)):
+        err = max(_equal_or_fail(key, kern(*a, **kw), ref(*a, **kw),
+                                 f"({kern.__name__} at step {i})")
+                  for i, (a, kw) in enumerate(cases))
+        errs[key] = max(errs.get(key, 0.0), err)
+    # the modes of the main path: DeviceFpRaht's kernel loop, one plan
+    # (a CPU rehearsal runs the kernels' mirrors in their place)
+    launchers = fpd.CUDA_LAUNCHERS if device.type == "cuda" else \
+        fpd.MIRROR_LAUNCHERS
+    rec_k, qbuf = dv._encode_kernels(vals, launchers)
+    plain_q = []
+    rec_p = dv._encode_plain(vals, plain_q.append)
+    _, root, groups = dv._rows()
+    host = qbuf.cpu().numpy()
+    cuts = [root] + [c for grp in groups for c in grp]
+    _check(all(np.array_equal(host[c], q) for c, q in zip(cuts, plain_q)),
+           "DeviceFpRaht's kernel loop gives other q rows than the plain "
+           "loop")
+    rows = torch.as_tensor(np.concatenate(plain_q).astype(np.int64),
+                           device=device)
+    dec_k = dv._decode_kernels(rows, launchers)
+    dec_p = dv._decode_plain(rows, [c.stop - c.start for c in cuts])
+    errs["raht_fp_group"] = max(errs["raht_fp_group"], _equal_or_fail(
+        "raht_fp_group", (rec_k, dec_k), (rec_p, dec_p),
+        "in DeviceFpRaht's loop"))
+    _sync(device)
+    _line("p", occ_u8_caps=f"{cap},{small}", nodes=total,
+          expand_levels=depth, truth_levels=len(truth), enc_groups=len(enc),
+          dec_groups=len(dec), q_rows=int(host.shape[0]),
+          max_abs_err=json.dumps(errs, separators=(",", ":")), tol=0,
+          plan_s=f"{plan_s:.1f}",
+          phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    return errs, SimpleNamespace(codes=codes, cap=cap, stream=stream,
+                                 truth=truth, enc=enc, dec=dec, dv=dv,
+                                 vals=vals, rows=rows)
 
 
 def _level_record(occ2, ctx2, counts, states0, words, K):
@@ -1892,10 +2083,69 @@ def _block_times(device, uniq, depth, colors, errs):
     return times
 
 
-def phase_f(device, uniq, depth, colors, rans, errs):
+def _headline_times(rec):
+    """The headline path's four kernels against their plain versions at
+    (p)'s shapes, in turns, each pass as the main path runs it: the
+    occupancy pass of the bench cloud, the expansion of its stream (a
+    counting launch and one a level), ``DeviceFpRaht``'s 11 truth levels,
+    and its 11 encode then 11 decode groups (the means handed on); the
+    plain pass is the 11 or 22 ``_ref`` calls of the same steps.  Each
+    with the bytes it must move (each step's inputs read once and its
+    outputs written once: the plan tensors the kernel reads; the
+    expansion's intermediate levels and the groups' hand-on left out)."""
+    from mpeg_pcc_tmc13_tpu_torch.ops import octree
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp_device as fpd
+
+    def plan(p):                        # the 22 plan tensors a group reads
+        return fpd.kernel_plan(p, fpd.row_offsets(p))
+    nbf = len(fpd.BUTTERFLY_KEYS) + 3   # the 16 the truth level reads
+    times = {}
+    depth = rec.stream[2]
+    occ_args = (rec.codes, depth, rec.cap)
+    truth = rec.dv._truth_kernels(rec.vals, fpd.CUDA_LAUNCHERS)
+    cases = {
+        "octree_occ_u8": (
+            lambda: octree.encode_occ_u8_hdr(*occ_args),
+            lambda: octree.encode_occ_u8_hdr_ref(*occ_args),
+            _io_bytes(rec.codes, octree.encode_occ_u8_hdr_ref(*occ_args)),
+            dict(points=rec.codes.numel(), depth=depth)),
+        "octree_expand": (
+            lambda: octree.decode_expand_stream(*rec.stream),
+            lambda: octree.decode_expand_stream_ref(*rec.stream),
+            _io_bytes(*rec.stream[:2],
+                      *octree.decode_expand_stream_ref(*rec.stream)),
+            dict(levels=depth, nmax=rec.stream[3])),
+        "raht_fp_truth_level": (
+            lambda: rec.dv._truth_kernels(rec.vals, fpd.CUDA_LAUNCHERS),
+            lambda: [fpd._truth_level_ref(*a) for a, _ in rec.truth],
+            sum(_io_bytes(a[0], *plan(a[1])[:nbf], *fpd._truth_level_ref(*a))
+                for a, _ in rec.truth),
+            dict(levels=len(rec.truth))),
+        "raht_fp_group": (
+            lambda: (rec.dv._enc_group_kernels(*truth, fpd.CUDA_LAUNCHERS),
+                     rec.dv._decode_kernels(rec.rows, fpd.CUDA_LAUNCHERS)),
+            lambda: ([fpd._enc_group_ref(*a, **kw) for a, kw in rec.enc],
+                     [fpd._dec_group_ref(*a, **kw) for a, kw in rec.dec]),
+            sum(_io_bytes(*a[:6], *plan(a[6]), *ref(*a, **kw))
+                for steps, ref in ((rec.enc, fpd._enc_group_ref),
+                                   (rec.dec, fpd._dec_group_ref))
+                for a, kw in steps),
+            dict(groups=f"{len(rec.enc)}+{len(rec.dec)}")),
+    }
+    for name, (kern, ref, nbytes, shape) in cases.items():
+        k, p, d = _turns(name, kern, ref, **shape)
+        bound, by = _bound_ms(nbytes)
+        times[name] = (k, p, d, bound, by)
+        _line("f", kernel=name, pass_ms=f"{k:.4f}", device_ms=f"{d:.4f}",
+              bound_ms=f"{bound:.4f}", bound_by=by,
+              share=f"{bound / d:.4f}", bytes=nbytes)
+    return times
+
+
+def phase_f(device, uniq, depth, colors, rans, errs, headline):
     """Stage times of a warm round trip and of a warm rANS round trip,
     B1/B2 checked at every level of (d), and each kernel timed against
-    its plain version at the shapes of (d) and (g), in turns plain,
+    its plain version at the shapes of (d), (g) and (p), in turns plain,
     kernel, kernel, plain."""
     from mpeg_pcc_tmc13_tpu_torch.models import geometry_rans as gr
     from mpeg_pcc_tmc13_tpu_torch.runtime import roundtrip as rt
@@ -1928,6 +2178,7 @@ def phase_f(device, uniq, depth, colors, rans, errs):
     times = _block_times(device, uniq, depth, colors, errs)
     rans_times, chain_ms = _rans_times(rans)
     times.update(rans_times)
+    times.update(_headline_times(headline))
     return times, chain_ms
 
 
@@ -2373,6 +2624,9 @@ def main() -> int:
     errs = phase_c(device)                                     # (c)
     uniq, colors = bench_cloud()
     r, launches = phase_d(device, uniq, BENCH_DEPTH, colors)   # (d)
+    p_errs, headline = phase_p(device, uniq, BENCH_DEPTH,      # (p)
+                               colors)
+    errs.update(p_errs)
     phase_e(device)                                            # (e)
     rans, rans_launches, rans_errs = phase_g(                  # (g)
         device, uniq, BENCH_DEPTH, len(r.geom_payload))
@@ -2390,7 +2644,7 @@ def main() -> int:
     phase_n(device, smi)                                       # (n)
     phase_o(smi)                                               # (o)
     times, chain_ms = phase_f(device, uniq, BENCH_DEPTH,       # (f)
-                              colors, rans, errs)
+                              colors, rans, errs, headline)
     times.update(m_times)
 
     kernels = []

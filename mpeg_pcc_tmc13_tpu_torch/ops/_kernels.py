@@ -109,6 +109,26 @@ def _build() -> tuple:
     return so, secs
 
 
+def on_card(t) -> bool:
+    """Where a wrapper's work runs: False for a CPU tensor (the plain
+    version), True for a CUDA one (the kernel); any other device
+    raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}: pass CPU "
+                         "tensors for the plain version or CUDA tensors "
+                         "for the kernel")
+    return True
+
+
+def stream(t) -> int:
+    """The current CUDA stream of ``t``'s device, as the launchers take
+    it."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def load():
     """The loaded kernel library (built first if needed)."""
     global _LIB
@@ -142,4 +162,20 @@ def _open(so: Path):
     lib.rans_decode_level_launch.argtypes = [vp, vp, vp, vp, vp, i64, vp,
                                              vp, vp, i64, i32, vp]
     lib.rans_decode_level_launch.restype = i32
+    lib.octree_occ_u8_launch.argtypes = [vp, i64, i32, i64, vp, i64, vp, vp]
+    lib.octree_occ_u8_launch.restype = i32
+    lib.octree_expand_count_launch.argtypes = [vp, i64, vp, i32, i64, vp,
+                                               vp]
+    lib.octree_expand_count_launch.restype = i32
+    lib.octree_expand_level_launch.argtypes = [vp, i64, vp, i32, i32, i64,
+                                               vp, vp, vp, vp, vp, vp]
+    lib.octree_expand_level_launch.restype = i32
+    pp = ctypes.POINTER(ctypes.c_void_p)
+    lib.raht_fp_truth_level_launch.argtypes = [pp, i64, i32, vp, i32, vp, vp,
+                                               vp, vp, vp]
+    lib.raht_fp_truth_level_launch.restype = i32
+    lib.raht_fp_group_launch.argtypes = [
+        pp, i64, i32, i32, vp, vp, vp, vp, pp, vp, pp, vp, vp, vp, vp,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_uint8), vp]
+    lib.raht_fp_group_launch.restype = i32
     return lib

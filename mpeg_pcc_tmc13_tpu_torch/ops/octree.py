@@ -18,11 +18,22 @@ The octree is implicit in the sorted leaf codes: the nodes of level
   static prefix code, the packed link) and ``decode_expand_stream``
   (decoder expansion back to leaf codes).
 
-The device half runs in native int64 throughout.  The reference splits
-each code at bit 30 to keep its level sweep in int32, and that split
-overflows at depth 21 (``ops/octree.py:471``, ``chi`` is a 33-bit value
-cast to int32); here the octant is read from the int64 code directly,
-so depth 21 matches ``build_levels_np``.
+On a CUDA tensor ``encode_occ_u8``/``encode_occ_u8_hdr`` launch the
+hand-written kernel ``octree_occ_u8`` and ``_expand_level``/
+``decode_expand_stream`` the kernel ``octree_expand`` of
+``csrc/octree_levels.cu`` (or raise); on a CPU tensor they run their
+plain versions, the ``_ref`` functions, which the kernels equal bit for
+bit and which the kernels' algorithms are mirrored against in plain
+torch (``first_level_mirror``, ``occ_u8_mirror``,
+``expand_level_mirror``) for the tests.  ``LAUNCHES`` counts the
+kernels' launches.
+
+The plain device half runs in native int64 throughout.  The reference
+splits each code at bit 30 to keep its level sweep in int32, and that
+split overflows at depth 21 (``ops/octree.py:471``, ``chi`` is a 33-bit
+value cast to int32); here (plain versions and kernels) the octant is
+read from the int64 code directly, so depth 21 matches
+``build_levels_np``.
 
 The occupancy passes are sync-free: shapes are static in the number of
 points and ``cap``/``nmax``, as in the jitted reference, so nothing
@@ -34,11 +45,13 @@ from the data.
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as np
 import torch
 
 from ..utils import morton
+from . import _kernels
 
 # 6 face neighbours, axis-major: -x,+x,-y,+y,-z,+z  (bit i of pattern).
 _FACE_OFFSETS = np.array(
@@ -196,9 +209,11 @@ def _min_levels(c: torch.Tensor, depth: int) -> torch.Tensor:
     return minlev
 
 
-def encode_occ_u8(leaf_codes_sorted: torch.Tensor, depth: int, cap: int):
-    """Level-major occupancy bytes of a sorted code tensor (duplicates
-    allowed; they collapse at the leaf level).
+def encode_occ_u8_ref(leaf_codes_sorted: torch.Tensor, depth: int,
+                      cap: int):
+    """Plain version of ``encode_occ_u8``: level-major occupancy bytes
+    of a sorted code tensor (duplicates allowed; they collapse at the
+    leaf level).
 
     1. ``_min_levels`` gives each point the first level it opens a node,
     2. a (depth, N) cumsum gives per-level node ranks, whose tails are the
@@ -241,14 +256,169 @@ def _u32_le_bytes(v: torch.Tensor) -> torch.Tensor:
         .to(torch.uint8).reshape(-1)
 
 
+def encode_occ_u8_hdr_ref(leaf_codes_sorted: torch.Tensor, depth: int,
+                          cap: int) -> torch.Tensor:
+    """Plain version of ``encode_occ_u8_hdr``: ``encode_occ_u8_ref`` with
+    the per-level counts in the buffer head.  Returns a (4*depth + cap,)
+    uint8 tensor: depth little-endian uint32 node counts, then the
+    level-major occupancy bytes (reference ``encode_occ_u8_hdr``,
+    ops/octree.py:564)."""
+    occ, counts = encode_occ_u8_ref(leaf_codes_sorted, depth, cap)
+    return torch.cat([_u32_le_bytes(counts), occ])
+
+
+# ---- the hand-written kernels (csrc/octree_levels.cu) ------------------
+
+# launches of each kernel (two grid passes per occupancy call; one
+# counting pass per expansion call plus one launch a level); the plain
+# versions add nothing.  Safe to count from several threads.
+LAUNCHES = {"octree_occ_u8": 0, "octree_expand": 0}
+_COUNT_LOCK = threading.Lock()
+# rows per tile of both kernels (kTile): 256 threads x 16 rows
+KERNEL_TILE = 4096
+
+
+def reset_launch_counts() -> None:
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(name: str, n: int = 1) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[name] += n
+
+
+def _launched(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def _occ_u8_words(c: torch.Tensor, depth: int, cap: int) -> torch.Tensor:
+    """The kernel's output: (4 depth + cap) bytes as int32 words (the
+    last word padded), the uint32 counts in words [0, depth)."""
+    if c.dtype != torch.int64 or c.dim() != 1:
+        raise TypeError(f"need (N,) int64 codes, got {c.dtype} "
+                        f"{tuple(c.shape)}")
+    if not 0 <= depth <= 21 or cap < 0:
+        raise ValueError(f"depth {depth} outside [0, 21] or cap {cap} < 0")
+    c = c.contiguous()
+    n = c.numel()
+    if n == 0:
+        raise ValueError("encode_occ_u8 of an empty code tensor")
+    nwords = -(-(4 * depth + cap) // 4)
+    if depth == 0:       # no level: the plain version's zero bytes
+        return torch.zeros(nwords, dtype=torch.int32, device=c.device)
+    tiles = -(-n // KERNEL_TILE)
+    words = torch.empty(nwords, dtype=torch.int32, device=c.device)
+    scratch = torch.empty(2 * tiles * depth + depth + 1, dtype=torch.int64,
+                          device=c.device)
+    lib = _kernels.load()
+    with torch.cuda.device(c.device):
+        rc = lib.octree_occ_u8_launch(c.data_ptr(), n, depth, cap,
+                                      words.data_ptr(), nwords,
+                                      scratch.data_ptr(), _kernels.stream(c))
+    _launched("octree_occ_u8", rc)
+    _count("octree_occ_u8", 2)
+    return words
+
+
+def encode_occ_u8(leaf_codes_sorted: torch.Tensor, depth: int, cap: int):
+    """Level-major occupancy bytes of a sorted code tensor (duplicates
+    allowed; they collapse at the leaf level): reference
+    ``encode_occ_u8`` (ops/octree.py:417-481) with ``_min_levels``.
+
+    Returns ``(occ_u8 (cap,), counts (depth,) int32)``; only the first
+    ``counts.sum()`` bytes are meaningful.  Slots at or past ``cap`` are
+    dropped while the counts stay whole, so an undersized ``cap`` shows
+    as ``counts.sum() > cap`` and the caller retries larger.  At depth 21
+    the octants come from the int64 code, so the bytes are
+    ``build_levels_np``'s (the reference's bit-30 split overflows there).
+
+    A CUDA tensor launches the kernel ``octree_occ_u8`` (two grid
+    passes) or raises; a CPU tensor runs ``encode_occ_u8_ref``.
+    """
+    c = leaf_codes_sorted
+    if not _kernels.on_card(c):
+        return encode_occ_u8_ref(c, depth, cap)
+    words = _occ_u8_words(c, depth, cap)
+    occ = words.view(torch.uint8)[4 * depth:4 * depth + cap]
+    return occ, words[:depth]
+
+
 def encode_occ_u8_hdr(leaf_codes_sorted: torch.Tensor, depth: int,
                       cap: int) -> torch.Tensor:
     """``encode_occ_u8`` with the per-level counts in the buffer head, so
     the host reads one buffer per slice.  Returns a (4*depth + cap,) uint8
     tensor: depth little-endian uint32 node counts, then the level-major
-    occupancy bytes (reference ``encode_occ_u8_hdr``, ops/octree.py:564)."""
-    occ, counts = encode_occ_u8(leaf_codes_sorted, depth, cap)
-    return torch.cat([_u32_le_bytes(counts), occ])
+    occupancy bytes (reference ``encode_occ_u8_hdr``, ops/octree.py:564).
+    A CUDA tensor launches ``octree_occ_u8`` (which writes the counts
+    itself) or raises; a CPU tensor runs ``encode_occ_u8_hdr_ref``."""
+    c = leaf_codes_sorted
+    if not _kernels.on_card(c):
+        return encode_occ_u8_hdr_ref(c, depth, cap)
+    return _occ_u8_words(c, depth, cap).view(torch.uint8)[:4 * depth + cap]
+
+
+# ---- the kernel's algorithm in plain torch (tests only) ----------------
+
+def _msb_mirror(x: torch.Tensor) -> torch.Tensor:
+    """63 - __clzll(x) of int64 x read as unsigned, -1 for 0: a binary
+    search over halves (torch has no clz)."""
+    y = torch.where(x < 0, 0, x)
+    hb = torch.zeros_like(x)
+    for s in (32, 16, 8, 4, 2, 1):
+        big = (y >> s) != 0
+        hb = hb + torch.where(big, s, 0)
+        y = torch.where(big, y >> s, y)
+    hb = torch.where(x == 0, -1, hb)
+    return torch.where(x < 0, 63, hb)
+
+
+def first_level_mirror(c: torch.Tensor, depth: int) -> torch.Tensor:
+    """The kernel's ``first_level``: 0 for point 0, depth + 1 for a
+    duplicate, else max(depth - msb(c[i] ^ c[i-1]) // 3, 1)."""
+    x = c ^ torch.cat([c[:1] ^ -1, c[:-1]])
+    lv = torch.clamp(depth - torch.div(_msb_mirror(x), 3,
+                                       rounding_mode="floor"), min=1)
+    lv = torch.where(x == 0, depth + 1, lv)
+    lv[:1] = 0
+    return lv
+
+
+def occ_u8_mirror(c: torch.Tensor, depth: int, cap: int,
+                  tile: int = KERNEL_TILE):
+    """``octree_occ_u8``'s two passes in plain torch: per tile the number
+    of points first at a level <= l, the tiles' exclusive prefixes and
+    the totals (the last CTA's scan), then each point's rank within its
+    tile (the ballots) plus its tile's prefix, and the octant bit ORed
+    into its node's byte where the slot is below ``cap``.  Returns
+    (occ (cap,) uint8, counts (depth,) int32)."""
+    n = c.shape[0]
+    lv = first_level_mirror(c, depth)
+    tiles = -(-n // tile)
+    pad = torch.full((tiles * tile,), depth + 2, dtype=torch.int64)
+    pad[:n] = lv
+    lvec = torch.arange(depth, dtype=torch.int64)[:, None, None]
+    first = (pad.view(tiles, tile)[None] <= lvec).to(torch.int64)
+    tile_cnt = first.sum(dim=2)                          # (depth, tiles)
+    tile_excl = torch.zeros_like(tile_cnt)
+    for t in range(1, tiles):                            # the scan
+        tile_excl[:, t] = tile_excl[:, t - 1] + tile_cnt[:, t - 1]
+    total = tile_excl[:, -1] + tile_cnt[:, -1]
+    offs = torch.cumsum(total, 0) - total
+    seg = (tile_excl[:, :, None] + torch.cumsum(first, dim=2) - 1) \
+        .reshape(depth, -1)[:, :n]
+    occ = torch.zeros(cap, dtype=torch.int64)
+    for l in range(depth):
+        mine = lv <= l + 1
+        dest = offs[l] + seg[l]
+        put = mine & (dest < cap)
+        octant = (c >> (3 * (depth - 1 - l))) & 7
+        bits = torch.bitwise_left_shift(1, octant)
+        for d, b in zip(dest[put].tolist(), bits[put].tolist()):
+            occ[d] |= b
+    return occ.to(torch.uint8), total.to(torch.int32)
 
 
 def _analysis_buffers(depth: int, n: int, dev) -> dict:
@@ -484,9 +654,11 @@ def _popcount8_table(device) -> torch.Tensor:
     return ((b >> k[None, :]) & 1).sum(dim=1)
 
 
-def _expand_level(nodes: torch.Tensor, occ: torch.Tensor, nmax: int,
-                  nth_bit: torch.Tensor, popcnt: torch.Tensor):
-    """One decoder level: node codes + occupancy bytes -> child codes.
+def _expand_level_ref(nodes: torch.Tensor, occ: torch.Tensor, nmax: int,
+                      nth_bit: torch.Tensor = None,
+                      popcnt: torch.Tensor = None):
+    """Plain version of ``_expand_level``: one decoder level, node codes
+    + occupancy bytes -> child codes.
 
     Gather form (reference ``_expand_level``, ops/octree.py:601-628):
     output slot k takes its parent row j_k — the row whose inclusive
@@ -497,8 +669,13 @@ def _expand_level(nodes: torch.Tensor, occ: torch.Tensor, nmax: int,
     occ must be zero past the node count.  Returns (child codes (nmax,)
     int64 padded with INT64_MAX, child count as a 0-d int64 tensor,
     source row of each child slot (nmax,) int64 — the rANS decoder reads
-    the parent's byte through it).
+    the parent's byte through it).  The tables are built here when not
+    given.
     """
+    if nth_bit is None:
+        nth_bit = _nth_set_bit_table(nodes.device)
+    if popcnt is None:
+        popcnt = _popcount8_table(nodes.device)
     row = torch.arange(nmax, dtype=torch.int64, device=nodes.device)
     occ64 = occ.to(torch.int64)
     pops = popcnt[occ64]
@@ -514,10 +691,11 @@ def _expand_level(nodes: torch.Tensor, occ: torch.Tensor, nmax: int,
     return out, new_cnt, src
 
 
-def decode_expand_stream(occ_u8: torch.Tensor, counts: torch.Tensor,
-                         depth: int, nmax: int):
-    """Decoder expansion from the level-major occupancy byte stream (the
-    layout the host entropy stage produces).
+def decode_expand_stream_ref(occ_u8: torch.Tensor, counts: torch.Tensor,
+                             depth: int, nmax: int):
+    """Plain version of ``decode_expand_stream``: decoder expansion from
+    the level-major occupancy byte stream (the layout the host entropy
+    stage produces).
 
     occ_u8: (cap,) uint8 (padding past counts.sum() ignored); counts:
     (depth,) per-level node counts on the same device; nmax: leaf
@@ -538,5 +716,170 @@ def decode_expand_stream(occ_u8: torch.Tensor, counts: torch.Tensor,
     for l in range(depth):
         idx = (offs[l] + row).clamp_(max=cap - 1)
         occ = torch.where(row < counts[l], occ_u8[idx], 0)
-        nodes, cnt, _ = _expand_level(nodes, occ, nmax, nth_bit, popcnt)
+        nodes, cnt, _ = _expand_level_ref(nodes, occ, nmax, nth_bit,
+                                          popcnt)
     return nodes, cnt
+
+
+def _expand_scratch(levels: int, nrows: int, device) -> torch.Tensor:
+    tiles = -(-nrows // KERNEL_TILE)
+    return torch.empty(levels * (2 * tiles + 2), dtype=torch.int64,
+                       device=device)
+
+
+def _expand_launch(lib, occ, counts, levels, nrows, scratch, stream):
+    """The counting pass of ``levels`` levels (all of a stream's levels at
+    once when ``counts`` is given, else the one level of ``occ``)."""
+    rc = lib.octree_expand_count_launch(
+        occ.data_ptr(), occ.numel(),
+        counts.data_ptr() if counts is not None else None, levels, nrows,
+        scratch.data_ptr(), stream)
+    _launched("octree_expand (count)", rc)
+    _count("octree_expand")
+
+
+def _expand_level_launch(lib, occ, counts, levels, l, nrows, scratch,
+                         nodes, out, src, new_cnt, stream):
+    rc = lib.octree_expand_level_launch(
+        occ.data_ptr(), occ.numel(),
+        counts.data_ptr() if counts is not None else None, levels, l,
+        nrows, scratch.data_ptr(),
+        nodes.data_ptr() if nodes is not None else None, out.data_ptr(),
+        src.data_ptr() if src is not None else None, new_cnt.data_ptr(),
+        stream)
+    _launched("octree_expand", rc)
+    _count("octree_expand")
+
+
+def _expand_level(nodes: torch.Tensor, occ: torch.Tensor, nmax: int,
+                  nth_bit: torch.Tensor = None, popcnt: torch.Tensor = None):
+    """One decoder level: node codes + occupancy bytes -> child codes
+    (reference ``_expand_level``, ops/octree.py:601-628).
+
+    nodes (nmax,) int64; occ (nmax,) occupancy bytes (any integer
+    type, values 0-255), zero past the node count.  Returns (child codes
+    (nmax,) int64 padded with INT64_MAX, child count as a 0-d int64
+    tensor, source row of each child slot (nmax,) int64, nmax - 1 on
+    padding rows).  A CUDA tensor launches ``octree_expand`` (its
+    counting pass, then the level) or raises; a CPU tensor runs
+    ``_expand_level_ref`` (which reads ``nth_bit`` and ``popcnt``; the
+    kernel needs no tables).
+    """
+    if not _kernels.on_card(nodes):
+        return _expand_level_ref(nodes, occ, nmax, nth_bit, popcnt)
+    if nodes.dtype != torch.int64 or tuple(nodes.shape) != (nmax,) \
+            or occ.shape != (nmax,) or occ.device != nodes.device:
+        raise ValueError(f"need (nmax,) int64 nodes and (nmax,) occupancy "
+                         f"bytes on one device, got {nodes.dtype} "
+                         f"{tuple(nodes.shape)} and {tuple(occ.shape)} on "
+                         f"{occ.device}")
+    if occ.dtype != torch.uint8:       # the kernel reads bytes
+        occ = occ.to(torch.uint8)
+    dev = nodes.device
+    nodes, occ = nodes.contiguous(), occ.contiguous()
+    out = torch.empty(nmax, dtype=torch.int64, device=dev)
+    src = torch.empty(nmax, dtype=torch.int64, device=dev)
+    cnt = torch.empty((), dtype=torch.int64, device=dev)
+    scratch = _expand_scratch(1, nmax, dev)
+    lib = _kernels.load()
+    stream = _kernels.stream(nodes)
+    with torch.cuda.device(dev):
+        _expand_launch(lib, occ, None, 1, nmax, scratch, stream)
+        _expand_level_launch(lib, occ, None, 1, 0, nmax, scratch, nodes,
+                             out, src, cnt, stream)
+    return out, cnt, src
+
+
+def decode_expand_stream(occ_u8: torch.Tensor, counts: torch.Tensor,
+                         depth: int, nmax: int):
+    """Decoder expansion from the level-major occupancy byte stream (the
+    layout the host entropy stage produces; reference
+    ``decode_expand_stream``, ops/octree.py:631-659).
+
+    occ_u8: (cap,) uint8 (padding past counts.sum() ignored); counts:
+    (depth,) per-level node counts on the same device (the kernel reads
+    int32; another type is converted); nmax: leaf capacity.  Returns
+    (codes (nmax,) int64 padded with INT64_MAX, leaf count as a 0-d
+    tensor).
+
+    A CUDA tensor launches ``octree_expand``: one counting pass over
+    every level's bytes, then one launch a level, each reading its bytes
+    straight from ``occ_u8`` at the level's offset (no copy per level),
+    the first from the root (code 0); or raises.  A CPU tensor runs
+    ``decode_expand_stream_ref``.
+    """
+    if not _kernels.on_card(occ_u8):
+        return decode_expand_stream_ref(occ_u8, counts, depth, nmax)
+    dev = occ_u8.device
+    if occ_u8.dtype != torch.uint8 or occ_u8.dim() != 1 \
+            or counts.device != dev or counts.numel() != depth:
+        raise ValueError(f"need (cap,) uint8 bytes and (depth,) counts on "
+                         f"one device, got {occ_u8.dtype} "
+                         f"{tuple(occ_u8.shape)} and {tuple(counts.shape)} "
+                         f"on {counts.device}")
+    if depth == 0:
+        nodes = torch.full((nmax,), I64_MAX, dtype=torch.int64, device=dev)
+        nodes[0] = 0
+        return nodes, torch.ones((), dtype=torch.int64, device=dev)
+    if counts.dtype != torch.int32:
+        counts = counts.to(torch.int32)
+    occ_u8, counts = occ_u8.contiguous(), counts.contiguous()
+    scratch = _expand_scratch(depth, nmax, dev)
+    cnts = torch.empty(depth, dtype=torch.int64, device=dev)
+    lib = _kernels.load()
+    stream = _kernels.stream(occ_u8)
+    nodes = None
+    with torch.cuda.device(dev):
+        _expand_launch(lib, occ_u8, counts, depth, nmax, scratch, stream)
+        for l in range(depth):
+            out = torch.empty(nmax, dtype=torch.int64, device=dev)
+            _expand_level_launch(lib, occ_u8, counts, depth, l, nmax,
+                                 scratch, nodes, out, None, cnts[l:l + 1],
+                                 stream)
+            nodes = out
+    return nodes, cnts[depth - 1]
+
+
+def expand_level_mirror(nodes: torch.Tensor, occ: torch.Tensor, nmax: int,
+                        tile: int = KERNEL_TILE, per_thread: int = 16):
+    """``octree_expand``'s algorithm for one level in plain torch: the
+    children of each tile (the counting pass) and the tiles' exclusive
+    prefixes (its last CTA's scan); within a tile, each thread's rows'
+    exclusive prefix plus the exclusive scan of the threads' sums; each
+    node then writes its r-th set bit's child at start + r (walking its
+    bits lowest first) and each tile the padding rows of its own range.
+    Same outputs as ``_expand_level_ref``."""
+    occ64 = occ.to(torch.int64) & 0xFF
+    bits = (occ64[:, None] >> torch.arange(8)) & 1
+    pops = bits.sum(dim=1)
+    tiles = -(-nmax // tile)
+    padded = torch.zeros(tiles * tile, dtype=torch.int64)
+    padded[:nmax] = pops
+    per_tile = padded.view(tiles, tile)
+    tile_sum = per_tile.sum(dim=1)
+    tile_excl = torch.cumsum(tile_sum, 0) - tile_sum
+    total = int(tile_sum.sum())
+    thread = per_tile.view(tiles, -1, per_thread)
+    thread_sum = thread.sum(dim=2)
+    thread_excl = torch.cumsum(thread_sum, 1) - thread_sum
+    row_excl = torch.cumsum(thread, 2) - thread
+    starts = (tile_excl[:, None, None] + thread_excl[:, :, None]
+              + row_excl).reshape(-1)[:nmax]
+    out = torch.empty(nmax, dtype=torch.int64)
+    src = torch.empty(nmax, dtype=torch.int64)
+    rows = torch.arange(nmax, dtype=torch.int64)
+    b = occ64.clone()
+    for r in range(8):                   # the r-th set bit of each node
+        has = pops > r
+        low = b & -b                     # lowest set bit left
+        bit = _msb_mirror(low)
+        b = b & (b - 1)
+        dst = starts + r
+        put = has & (dst < nmax)
+        up = torch.bitwise_left_shift(nodes[put], 3)
+        out[dst[put]] = up | bit[put]
+        src[dst[put]] = rows[put]
+    pad = rows >= total
+    out[pad] = I64_MAX
+    src[pad] = nmax - 1
+    return out, torch.tensor(total, dtype=torch.int64), src

@@ -44,8 +44,9 @@ decodes a different cloud; here the octant is read from the int64 code,
 and the analysis equals ``build_levels_np(..., CTX_MODE_PARENT)`` at
 every depth.
 
-``plain=True`` runs the plain PyTorch version of every lane kernel on
-any device: the card-side check that the kernels change no byte.
+``plain=True`` runs the plain PyTorch version of every lane kernel and
+of the decoder's expansion (``_expand_level_ref``) on any device: the
+card-side check that the kernels change no byte.
 """
 
 from __future__ import annotations
@@ -55,8 +56,9 @@ import torch
 
 from ..utils.device import resolve as resolve_device
 from . import rans_lanes as lanes_ops
-from .octree import (I64_MAX, _expand_level, _min_levels,
-                     _nth_set_bit_table, _popcount8_table, _u32_le_bytes)
+from .octree import (I64_MAX, _expand_level, _expand_level_ref,
+                     _min_levels, _nth_set_bit_table, _popcount8_table,
+                     _u32_le_bytes)
 from .rans_lanes import N_CTX, _ceil_div
 
 
@@ -213,6 +215,7 @@ def decode_device(counts, states0: torch.Tensor, words: torch.Tensor,
     counts_host = [int(c) for c in
                    (counts.tolist() if torch.is_tensor(counts) else counts)]
     _, _, decode_level = _lane_ops(plain)
+    expand = _expand_level_ref if plain else _expand_level
     nmax_p = (_ceil_div(nmax, K) + 1) * K
     row = torch.arange(nmax, dtype=torch.int64, device=dev)
     nth_bit = _nth_set_bit_table(dev)
@@ -234,7 +237,7 @@ def decode_device(counts, states0: torch.Tensor, words: torch.Tensor,
                      counts_host[l])
         occ_l = syms[:nmax].to(torch.int64)
         occ_v = torch.where(row < counts_host[l], occ_l, 0)
-        nodes, cnt, src = _expand_level(nodes, occ_v, nmax, nth_bit, popcnt)
+        nodes, cnt, src = expand(nodes, occ_v, nmax, nth_bit, popcnt)
         valid_n = row < cnt
         ctx_next = torch.where(valid_n, ((nodes & 7) << 8) | occ_l[src], 0)
         ctx_row = torch.nn.functional.pad(ctx_next.to(torch.int32),

@@ -29,6 +29,21 @@ run of at most four channels, a CPU tensor runs its plain version
 ``fwd_blocks_int_ref``.  The kernel's fast path is mirrored in plain
 torch beside it for the tests (``fwd_blocks_int_mirror``).
 
+The closed loop itself (B6) runs on hand-written kernels on a CUDA
+device: ``raht_fp_truth_level`` (one launch a truth level: gather,
+forward network, compaction) and ``raht_fp_group`` (one launch a coded
+group: prediction, forward network, quantisation, inverse network, the
+children's reconstruction) of ``csrc/raht_fp_loop.cu``.  The public
+level steps ``_truth_level``, ``_enc_group`` and ``_dec_group`` launch
+them on a CUDA tensor and run their plain versions (``_ref``) on a CPU
+tensor; ``DeviceFpRaht.encode``/``decode`` drive the kernels over a
+whole frame on a card (``_encode_kernels``/``_decode_kernels``: the
+first group also (de)quantises the roots, each group hands the next its
+children's Q13 means, the last decode group shifts out the fraction).
+``truth_level_mirror`` and ``group_mirror`` are the kernels' arithmetic
+in plain torch, with the launchers' signatures, so the tests run the
+card's orchestration on the CPU (``MIRROR_LAUNCHERS``).
+
 Translation rules from the JAX form: ``jnp.floor_divide`` is
 ``torch.div(..., rounding_mode="floor")``; ``>>`` on int64 is
 arithmetic in both; ``.at[].set``/``.at[].add`` are ``index_put_`` /
@@ -38,6 +53,7 @@ in range).
 
 from __future__ import annotations
 
+import ctypes
 import threading
 from dataclasses import dataclass
 from typing import List
@@ -328,9 +344,10 @@ def _compact(acz, acy, acx, p):
 # stage, parallel/slices.py:sharded_raht_fp_blocks)
 # ---------------------------------------------------------------------
 
-# launches of the kernel (the plain version adds nothing); safe to count
-# from several threads
-LAUNCHES = {"fwd_blocks_int": 0}
+# launches of each kernel (the plain versions add nothing); safe to
+# count from several threads
+LAUNCHES = {"fwd_blocks_int": 0, "raht_fp_truth_level": 0,
+            "raht_fp_group": 0}
 _COUNT_LOCK = threading.Lock()
 # the most channels one launch takes (csrc/raht_fp_blocks.cu: kMaxRun);
 # more go through the kernel in runs, a launch each
@@ -538,7 +555,9 @@ def fwd_blocks_int(blk_v: torch.Tensor, blk_w: torch.Tensor):
     return _in_channel_runs(launch, _aligned(blk_v), _aligned(blk_w))
 
 
-def _truth_level(vals, p):
+def _truth_level_ref(vals, p):
+    """Plain version of ``_truth_level`` (reference ``_truth_level``,
+    ops/raht_fp_device.py:335)."""
     dc, acz, acy, acx = _fwd_block(_gather_blocks(vals, p), p)
     z, y, x = _compact(acz, acy, acx, p)
     return dc, z, y, x
@@ -574,8 +593,10 @@ def _pred_ac(recon_p, grand_p, p, t0, t1, weights, have_grand):
     return _compact(pz, py, px, p), cnt
 
 
-def _enc_group(recon_p, grand_p, tz, ty, tx, steps, p,
-               t0, t1, weights, have_grand):
+def _enc_group_ref(recon_p, grand_p, tz, ty, tx, steps, p,
+                   t0, t1, weights, have_grand):
+    """Plain version of ``_enc_group`` (reference ``_enc_group``,
+    ops/raht_fp_device.py:342)."""
     preds, cnt = _pred_ac(recon_p, grand_p, p, t0, t1, weights,
                           have_grand)
     qs = []
@@ -588,13 +609,363 @@ def _enc_group(recon_p, grand_p, tz, ty, tx, steps, p,
     return qs[0], qs[1], qs[2], recon_c, cnt
 
 
-def _dec_group(recon_p, grand_p, qz, qy, qx, steps, p,
-               t0, t1, weights, have_grand):
+def _dec_group_ref(recon_p, grand_p, qz, qy, qx, steps, p,
+                   t0, t1, weights, have_grand):
+    """Plain version of ``_dec_group`` (reference ``_dec_group``,
+    ops/raht_fp_device.py:359)."""
     preds, cnt = _pred_ac(recon_p, grand_p, p, t0, t1, weights,
                           have_grand)
     recs = [pr + _dequant(qq, steps)
             for pr, qq in zip(preds, (qz, qy, qx))]
     return _inverse_group_pure(recon_p, recs, p), cnt
+
+
+# ---------------------------------------------------------------------
+# the closed loop's hand-written kernels (csrc/raht_fp_loop.cu)
+# ---------------------------------------------------------------------
+
+# the plan tensors a kernel reads, in the launcher's pointer order: the
+# butterflies' (what the truth kernel reads), the row offsets
+# (``row_offsets``), the prediction's
+BUTTERFLY_KEYS = ("blk_gather", "az", "bz", "vz", "sz", "ay", "by", "vy",
+                  "sy", "ax", "bx", "vx", "sx")
+PREDICTION_KEYS = ("sw_p", "sw_c", "nbr_idx", "nbr_ok", "en_base", "cnt_p")
+# raht_fp_group's mode bits
+MODE_DECODE = 1       # q rows in (else truth rows in, q rows out)
+MODE_ROOT = 2         # the parents are the roots: (de)quantise them first
+MODE_FINAL = 4        # write (v + HALF) >> F
+MODE_HAVE_GRAND = 8   # gate the prediction on the grandparent counts
+MODE_Q32 = 16         # q rows out as int32 (else int64)
+# bit o of entry j: neighbour offset j touches octant o
+NBR_OCTANTS = tuple(int(sum(1 << o for o in range(8) if _TOUCH_TABLE[o, j]))
+                    for j in range(_TOUCH_TABLE.shape[1]))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _ptrs(ts):
+    return (ctypes.c_void_p * len(ts))(*(_ptr(t) for t in ts))
+
+
+def row_offsets(p):
+    """(off_z, off_y, off_x), each (mp,) int64: the zrow row of each
+    block's first valid pair of a stage, i.e. the valid pairs of the
+    blocks before it (``flat_z`` etc. list the pairs in that order)."""
+    out = []
+    for k, width in (("vz", 4), ("vy", 2), ("vx", 1)):
+        per = p[k].reshape(-1, width).sum(dim=1, dtype=_I64)
+        out.append(torch.cumsum(per, 0) - per)
+    return tuple(out)
+
+
+def kernel_plan(p, offsets):
+    """The 22 tensors a kernel reads, in the launcher's pointer order."""
+    return ([p[k] for k in BUTTERFLY_KEYS] + list(offsets)
+            + [p[k] for k in PREDICTION_KEYS])
+
+
+def _plan_ptrs(p, offsets):
+    ts = kernel_plan(p, offsets)
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("a plan tensor is not contiguous")
+    return _ptrs(ts)
+
+
+def _cuda_truth(p, offsets, mp, vals, shift, dc, z, y, x):
+    """Launch ``raht_fp_truth_level``: block values gathered from ``vals``
+    (mc, C) << ``shift`` -> dc (mp, C) and the z, y, x AC rows."""
+    lib = _kernels.load()
+    with torch.cuda.device(vals.device):
+        rc = lib.raht_fp_truth_level_launch(
+            _plan_ptrs(p, offsets), mp, vals.shape[1], vals.data_ptr(),
+            shift,
+            dc.data_ptr(), z.data_ptr(), y.data_ptr(), x.data_ptr(),
+            _kernels.stream(vals))
+    if rc != 0:
+        raise RuntimeError(f"raht_fp_truth_level launch failed: CUDA "
+                           f"error {rc}")
+    with _COUNT_LOCK:
+        LAUNCHES["raht_fp_truth_level"] += 1
+
+
+def _cuda_group(p, offsets, mp, mode, recon_p, pf_p, grand_p, steps,
+                rows_in, q_root_in, q_out, q_root_out, recon_c, pf_c, cnt_c,
+                t0, weights):
+    """Launch ``raht_fp_group`` over the ``mp`` parent blocks of plan
+    ``p``: see ``group_mirror`` for each argument."""
+    dev = recon_c.device
+    lib = _kernels.load()
+    ints = (ctypes.c_int64 * 4)(t0, *weights)
+    octs = (ctypes.c_uint8 * len(NBR_OCTANTS))(*NBR_OCTANTS)
+    with torch.cuda.device(dev):
+        rc = lib.raht_fp_group_launch(
+            _plan_ptrs(p, offsets), mp, steps.shape[0], mode, _ptr(recon_p),
+            _ptr(pf_p), _ptr(grand_p), steps.data_ptr(), _ptrs(rows_in),
+            _ptr(q_root_in), _ptrs(q_out), _ptr(q_root_out),
+            recon_c.data_ptr(), _ptr(pf_c), cnt_c.data_ptr(), ints, octs,
+            _kernels.stream(recon_c))
+    if rc != 0:
+        raise RuntimeError(f"raht_fp_group launch failed: CUDA error {rc}")
+    with _COUNT_LOCK:
+        LAUNCHES["raht_fp_group"] += 1
+
+
+def _group_shapes(p):
+    """(mp, mc, (nz, ny, nx)) of a plan."""
+    return (p["az"].shape[0], p["pidx"].shape[0],
+            tuple(p[k].shape[0] for k in ("flat_z", "flat_y", "flat_x")))
+
+
+def _truth_level(vals, p):
+    """One truth level (reference ``_truth_level``, ops/raht_fp_device.py
+    :335): the blocks' values gathered from ``vals`` (mc, C) int64, their
+    forward network, the ACs compacted in zrow order.  Returns (dc (mp,
+    C), z, y, x rows).  A CUDA tensor launches ``raht_fp_truth_level``
+    (with the plan's ``row_offsets``) or raises; a CPU tensor runs
+    ``_truth_level_ref``."""
+    if not _kernels.on_card(vals):
+        return _truth_level_ref(vals, p)
+    mp, _, counts = _group_shapes(p)
+    vals = vals.contiguous()
+    c = vals.shape[1]
+    dc = vals.new_empty(mp, c)
+    z, y, x = (vals.new_empty(n, c) for n in counts)
+    if mp:
+        _cuda_truth(p, row_offsets(p), mp, vals, 0, dc, z, y, x)
+    return dc, z, y, x
+
+
+def _group_call(recon_p, grand_p, rows, steps, p, t0, weights, have_grand,
+                decode):
+    mp, mc, counts = _group_shapes(p)
+    c = steps.shape[0]
+    recon_p = recon_p.contiguous()
+    rows = [r.contiguous() for r in rows]
+    recon_c = recon_p.new_empty(mc, c)
+    cnt = recon_p.new_empty(mc)
+    q = [None] * 3 if decode else [recon_p.new_empty(n, c) for n in counts]
+    mode = (MODE_DECODE if decode else 0) | \
+        (MODE_HAVE_GRAND if have_grand else 0)
+    if mp:
+        _cuda_group(p, row_offsets(p), mp, mode, recon_p, None,
+                    grand_p.contiguous() if have_grand else None, steps,
+                    rows, None, q, None, recon_c, None, cnt, t0, weights)
+    return q, recon_c, cnt
+
+
+def _enc_group(recon_p, grand_p, tz, ty, tx, steps, p,
+               t0, t1, weights, have_grand):
+    """One encoder group (reference ``_enc_group``, ops/raht_fp_device.py
+    :342): prediction from the parents' reconstruction, its forward
+    network, the residuals' q rows, the children's reconstruction.
+    Returns (qz, qy, qx, recon_c, next group's grandparent counts).  A
+    CUDA tensor launches ``raht_fp_group`` (the parents' means computed
+    per read) or raises; a CPU tensor runs ``_enc_group_ref``.  ``t1``
+    is in the plan already (``en_base``)."""
+    if not _kernels.on_card(recon_p):
+        return _enc_group_ref(recon_p, grand_p, tz, ty, tx, steps, p,
+                              t0, t1, weights, have_grand)
+    q, recon_c, cnt = _group_call(recon_p, grand_p, (tz, ty, tx), steps, p,
+                                  t0, weights, have_grand, decode=False)
+    return q[0], q[1], q[2], recon_c, cnt
+
+
+def _dec_group(recon_p, grand_p, qz, qy, qx, steps, p,
+               t0, t1, weights, have_grand):
+    """One decoder group (reference ``_dec_group``, ops/raht_fp_device.py
+    :359): returns (recon_c, next group's grandparent counts).  A CUDA
+    tensor launches ``raht_fp_group`` or raises; a CPU tensor runs
+    ``_dec_group_ref``."""
+    if not _kernels.on_card(recon_p):
+        return _dec_group_ref(recon_p, grand_p, qz, qy, qx, steps, p,
+                              t0, t1, weights, have_grand)
+    _, recon_c, cnt = _group_call(recon_p, grand_p, (qz, qy, qx), steps, p,
+                                  t0, weights, have_grand, decode=True)
+    return recon_c, cnt
+
+
+# ---- the kernels' arithmetic in plain torch (tests only) ---------------
+
+def floordiv_mirror(a, b):
+    """The kernels' ``floordiv``: C's truncating quotient, one less where
+    the remainder is non-zero and its sign differs from the divisor's
+    (b > 0 here, so: a negative numerator with a remainder)."""
+    q = torch.div(a, b, rounding_mode="trunc")
+    r = a - q * b
+    return q - ((r != 0) & ((r < 0) != (b < 0))).to(_I64)
+
+
+def _quant_mirror(res, st):
+    a = res.abs()
+    q = floordiv_mirror(24 * a + st, 3 * st)
+    return torch.where(res < 0, -q, q)
+
+
+def _coef_mirror(p):
+    """(a, b, valid, hi) of the 7 butterflies a block, (mp, 7): z pairs
+    k = 0..3, y k = 4, 5, x k = 6 (the kernel's ``Coef``)."""
+    a = torch.cat([p["az"], p["ay"], p["ax"][:, None]], 1)
+    b = torch.cat([p["bz"], p["by"], p["bx"][:, None]], 1)
+    valid = torch.cat([p["vz"], p["vy"], p["vx"][:, None]], 1)
+    hi = torch.cat([p["sz"], p["sy"], p["sx"][:, None]], 1) == 1
+    return a, b, valid, hi
+
+
+def _pair_rows_mirror(offsets, valid):
+    """(mp, 7) zrow row of each butterfly, -1 where it is no pair."""
+    oz, oy, ox = offsets
+    off = torch.cat([oz[:, None].expand(-1, 4), oy[:, None].expand(-1, 2),
+                     ox[:, None]], 1)
+    v = valid.to(_I64)
+    rank = torch.cat([torch.cumsum(v[:, :4], 1), torch.cumsum(v[:, 4:6], 1),
+                      v[:, 6:]], 1) - v
+    return torch.where(valid, off + rank, -1)
+
+
+def _forward_mirror(cf, v8):
+    """The kernel's ``forward`` on (mp, 8, C): (dc (mp, C), ac (mp, 7,
+    C))."""
+    a, b, valid, hi = (t[..., None] for t in cf)
+
+    def pair(k, v0, v1):
+        dc = (a[:, k] * v0 + b[:, k] * v1 + QAH) >> QA
+        ac = (a[:, k] * v1 - b[:, k] * v0 + QAH) >> QA
+        return (torch.where(valid[:, k], dc, torch.where(hi[:, k], v1, v0)),
+                torch.where(valid[:, k], ac, 0))
+
+    vz, acs = [], []
+    for s in range(4):
+        o, ac = pair(s, v8[:, 2 * s], v8[:, 2 * s + 1])
+        vz.append(o)
+        acs.append(ac)
+    vy = []
+    for s in range(2):
+        o, ac = pair(4 + s, vz[2 * s], vz[2 * s + 1])
+        vy.append(o)
+        acs.append(ac)
+    dc, ac = pair(6, vy[0], vy[1])
+    acs.append(ac)
+    return dc, torch.stack(acs, 1)
+
+
+def _inverse_mirror(cf, dc, ac):
+    """The kernel's ``inverse``: dc (mp, C), ac (mp, 7, C) -> (mp, 8, C)."""
+    a, b, valid, hi = (t[..., None] for t in cf)
+
+    def unpair(k, v, acv):
+        o0 = (a[:, k] * v - b[:, k] * acv + QAH) >> QA
+        o1 = (b[:, k] * v + a[:, k] * acv + QAH) >> QA
+        return (torch.where(valid[:, k], o0, torch.where(hi[:, k], 0, v)),
+                torch.where(valid[:, k], o1, torch.where(hi[:, k], v, 0)))
+
+    vy = unpair(6, dc, ac[:, 6])
+    vz = []
+    for s in range(2):
+        vz.extend(unpair(4 + s, vy[s], ac[:, 4 + s]))
+    v8 = []
+    for s in range(4):
+        v8.extend(unpair(s, vz[s], ac[:, s]))
+    return torch.stack(v8, 1)
+
+
+def _put_rows(cf_valid, rows, k, stage_out, vals):
+    """stage_out[rows[:, k]] = vals where pair k is valid."""
+    sel = cf_valid[:, k]
+    stage_out[rows[sel, k]] = vals[sel].to(stage_out.dtype)
+
+
+def truth_level_mirror(p, offsets, mp, vals, shift, dc, z, y, x):
+    """``raht_fp_truth_level`` in plain torch, in place, with the
+    launcher's signature."""
+    cf = _coef_mirror(p)
+    rows = _pair_rows_mirror(offsets, cf[2])
+    g = p["blk_gather"]
+    v8 = torch.where((g >= 0)[..., None], vals[g.clamp(min=0)] << shift, 0)
+    d, ac = _forward_mirror(cf, v8)
+    dc.copy_(d)
+    for k, out in enumerate((z, z, z, z, y, y, x)):
+        _put_rows(cf[2], rows, k, out, ac[:, k])
+
+
+def group_mirror(p, offsets, mp, mode, recon_p, pf_p, grand_p, steps,
+                 rows_in, q_root_in, q_out, q_root_out, recon_c, pf_c, cnt_c,
+                 t0, weights):
+    """``raht_fp_group`` in plain torch, in place, with the launcher's
+    signature.  offsets: the plan's ``row_offsets``; recon_p (mp, C):
+    the parents' reconstruction (at the root: the roots' DC truth when
+    encoding, None when decoding); pf_p: the
+    parents' Q13 means or None (computed per read); grand_p (mp,) or
+    None; rows_in: z, y, x truth rows (encode) or q rows (decode);
+    q_root_in: the roots' q rows (decoding at the root); q_out, q_root_out:
+    where encoding writes q rows; recon_c, pf_c (or None), cnt_c: the
+    children's reconstruction, Q13 means and next grandparent counts."""
+    w_self, w_face, w_edge = weights
+    decode, root = mode & MODE_DECODE, mode & MODE_ROOT
+    cf = _coef_mirror(p)
+    rows = _pair_rows_mirror(offsets, cf[2])
+    st = steps[None, :]
+    every = torch.arange(mp, dtype=_I64, device=steps.device)
+
+    def parent_recon(r):
+        if not root:
+            return recon_p[r]
+        if decode:
+            return _dequant(q_root_in[r], steps)
+        return _dequant(_quant_mirror(recon_p[r], st), steps)
+
+    def parent_mean(r):
+        if pf_p is not None:
+            return pf_p[r]
+        return floordiv_mirror(parent_recon(r) << QA, p["sw_p"][r][:, None])
+
+    mean = parent_mean(every)                               # (mp, C)
+    nmean = parent_mean(p["nbr_idx"].reshape(-1)).reshape(mp, 18, -1)
+    pv = mean[:, 0, None]
+    nl = 10 * nmean[..., 0]
+    keep = p["nbr_ok"] & (nl > 2 * pv) & (nl < 25 * pv)
+    wj = torch.tensor([w_face] * 6 + [w_edge] * 12, dtype=_I64,
+                      device=steps.device)
+    kw = torch.where(keep, wj, 0)                           # (mp, 18)
+    touch = torch.tensor([[(m >> o) & 1 for o in range(8)]
+                          for m in NBR_OCTANTS], dtype=_I64,
+                         device=steps.device)              # (18, 8)
+    wsum = w_self + (kw[:, :, None] * touch).sum(1)         # (mp, 8)
+    s = ((nmean * kw[..., None])[:, :, None, :]
+         * touch[None, :, :, None]).sum(1)                  # (mp, 8, C)
+    en = p["en_base"]
+    if mode & MODE_HAVE_GRAND:
+        en = en & (grand_p >= t0)
+    g = p["blk_gather"]
+    child = g >= 0
+    pm = floordiv_mirror(mean[:, None, :] * w_self + s, wsum[..., None])
+    pred = (pm * p["sw_c"][g.clamp(min=0)][..., None] + QAH) >> QA
+    pred = torch.where((child & en[:, None])[..., None], pred, 0)
+    _, pac = _forward_mirror(cf, pred)
+    rec = torch.zeros_like(pac)
+    for k in range(7):
+        stage = 0 if k < 4 else (1 if k < 6 else 2)
+        sel = cf[2][:, k]
+        r = rows[sel, k]
+        if decode:
+            q = rows_in[stage][r]
+        else:
+            q = _quant_mirror(rows_in[stage][r] - pac[sel, k], st)
+            q_out[stage][r] = q.to(q_out[stage].dtype)
+        rec[sel, k] = pac[sel, k] + _dequant(q, steps)
+    if root and not decode:
+        q_root_out.copy_(_quant_mirror(recon_p, st).to(q_root_out.dtype))
+    v8 = _inverse_mirror(cf, parent_recon(every), rec)
+    val, dst = v8[child], g[child]
+    recon_c[dst] = ((val + HALF) >> F) if mode & MODE_FINAL else val
+    if pf_c is not None:
+        pf_c[dst] = floordiv_mirror(val << QA, p["sw_c"][dst][:, None])
+    cnt_c[dst] = p["cnt_p"][:, None].expand(-1, 8)[child]
+
+
+CUDA_LAUNCHERS = (_cuda_truth, _cuda_group)
+MIRROR_LAUNCHERS = (truth_level_mirror, group_mirror)
 
 
 class DeviceFpRaht:
@@ -615,6 +986,7 @@ class DeviceFpRaht:
                                      device=self.device)
         host_plans = build_fp_plan(leaf_codes, depth, thresholds)
         self.plans = plans_to_torch(host_plans, self.device)
+        self.offsets = [row_offsets(p) for p in self.plans]
         self.pair_counts = [(hp.flat_z.size, hp.flat_y.size,
                              hp.flat_x.size) for hp in host_plans]
         self.n_roots = host_plans[-1].mp if host_plans else \
@@ -624,16 +996,42 @@ class DeviceFpRaht:
         return dict(t0=self.t0, t1=self.t1, weights=self.weights,
                     have_grand=gi > 0)
 
+    def _rows(self):
+        """The coded-order q rows: (n_roots, then per coded group gi the
+        z, y, x row slices) of one (total, C) buffer."""
+        bounds = [self.n_roots]
+        for gi in range(self.depth):
+            bounds.extend(self.pair_counts[self.depth - 1 - gi])
+        edges = np.concatenate([[0], np.cumsum(bounds)]).tolist()
+        cuts = [slice(a, b) for a, b in zip(edges[:-1], edges[1:])]
+        return edges[-1], cuts[0], [tuple(cuts[1 + 3 * gi:4 + 3 * gi])
+                                    for gi in range(self.depth)]
+
     def encode(self, values: np.ndarray, emit):
         """values (N, C) ints.  emit(q_rows int32 (m, C)) is called in
         coded order (root, then groups coarse->fine, z|y|x per group)
-        with host arrays.  Returns the device reconstruction (Q13)."""
+        with host arrays.  Returns the device reconstruction (Q13).  On a
+        CUDA device the loop is the kernels' (``_encode_kernels``), else
+        the plain versions' (``_encode_plain``); the q rows reach the
+        host in ONE copy either way."""
         vals = torch.as_tensor(np.asarray(values, dtype=np.int64),
-                               device=self.device) << F
+                               device=self.device)
+        if self.device.type == "cuda" and self.depth > 0:
+            recon, qbuf = self._encode_kernels(vals, CUDA_LAUNCHERS)
+            host = qbuf.cpu().numpy()
+            _, root, groups = self._rows()
+            for cut in [root] + [c for grp in groups for c in grp]:
+                emit(host[cut])
+            return recon
+        return self._encode_plain(vals, emit)
+
+    def _encode_plain(self, vals, emit):
+        """The closed loop of the plain versions (any device)."""
+        vals = vals << F
         acs_true = []          # per group (z, y, x) compacted
         cur = vals
         for g in range(self.depth):
-            cur, z, y, x = _truth_level(cur, self.plans[g])
+            cur, z, y, x = _truth_level_ref(cur, self.plans[g])
             acs_true.append((z, y, x))
         root = cur                                   # (n_roots, C)
 
@@ -644,7 +1042,7 @@ class DeviceFpRaht:
         for gi in range(self.depth):
             g = self.depth - 1 - gi                  # plan index
             tz, ty, tx = acs_true[g]
-            qz, qy, qx, recon, grand = _enc_group(
+            qz, qy, qx, recon, grand = _enc_group_ref(
                 recon, grand, tz, ty, tx, self.steps, self.plans[g],
                 **self._group_kw(gi))
             pending.extend((qz, qy, qx))
@@ -659,24 +1057,110 @@ class DeviceFpRaht:
             off += m * c
         return recon
 
+    def _encode_kernels(self, vals, launchers):
+        """The encoder's loop as the card runs it: ``_truth_kernels``,
+        then ``_enc_group_kernels``.  ``launchers``: ``CUDA_LAUNCHERS``
+        or ``MIRROR_LAUNCHERS``.  Returns (reconstruction (N, C) Q13, q
+        buffer (total, C) int32 in coded order)."""
+        truth, root = self._truth_kernels(vals, launchers)
+        return self._enc_group_kernels(truth, root, launchers)
+
+    def _truth_kernels(self, vals, launchers):
+        """``depth`` truth-level launches, the first shifting the values
+        (N, C) to Q13 as it reads them, writing the truth ACs into one
+        (total, C) int64 buffer in coded order.  Returns (buffer, the
+        roots' DC (n_roots, C))."""
+        truth_launch = launchers[0]
+        total, _, groups = self._rows()
+        c = vals.shape[1]
+        truth = vals.new_empty(total, c)
+        cur, shift = vals.contiguous(), F
+        for g in range(self.depth):
+            p = self.plans[g]
+            mp = _group_shapes(p)[0]
+            dc = vals.new_empty(mp, c)
+            truth_launch(p, self.offsets[g], mp, cur, shift, dc,
+                         *(truth[r] for r in groups[self.depth - 1 - g]))
+            cur, shift = dc, 0
+        return truth, cur
+
+    def _enc_group_kernels(self, truth, root, launchers):
+        """``depth`` encode-group launches over ``_truth_kernels``'
+        outputs: the first quantises the roots, each hands the next its
+        children's Q13 means, the q rows land as int32 in one (total, C)
+        buffer in coded order.  Returns (reconstruction, q buffer)."""
+        group_launch = launchers[1]
+        total, root_rows, groups = self._rows()
+        c = root.shape[1]
+        qbuf = torch.empty((total, c), dtype=torch.int32, device=root.device)
+        recon, pf, grand = root, None, None
+        for gi in range(self.depth):
+            g = self.depth - 1 - gi
+            p = self.plans[g]
+            mp, mc, _ = _group_shapes(p)
+            last = gi == self.depth - 1
+            recon_c, cnt = root.new_empty(mc, c), root.new_empty(mc)
+            pf_c = None if last else root.new_empty(mc, c)
+            mode = MODE_Q32 | (MODE_ROOT if gi == 0 else MODE_HAVE_GRAND)
+            group_launch(p, self.offsets[g], mp, mode, recon, pf, grand,
+                         self.steps, [truth[r] for r in groups[gi]], None,
+                         [qbuf[r] for r in groups[gi]],
+                         qbuf[root_rows] if gi == 0 else None, recon_c,
+                         pf_c, cnt, self.t0, self.weights)
+            recon, pf, grand = recon_c, pf_c, cnt
+        return recon, qbuf
+
     def decode(self, read_q, ncomp: int):
         """read_q(m) -> (m, ncomp) int host rows, called in coded order
         (the counts are geometry-static).  Returns the (N, ncomp) int64
-        values on the device."""
+        values on the device.  The host entropy-decodes every row up
+        front and uploads them in ONE copy; on a CUDA device the loop is
+        the kernels' (``_decode_kernels``), else the plain versions'."""
         counts = [self.n_roots]
         for gi in range(self.depth):
             counts.extend(self.pair_counts[self.depth - 1 - gi])
-        # host entropy decode of every row up front, ONE upload
         host = np.concatenate(
             [np.asarray(read_q(m), dtype=np.int64).reshape(m, ncomp)
              for m in counts], axis=0)
-        rows = torch.as_tensor(host, device=self.device).split(counts)
+        rows = torch.as_tensor(host, device=self.device)
+        if self.device.type == "cuda" and self.depth > 0:
+            return self._decode_kernels(rows, CUDA_LAUNCHERS)
+        return self._decode_plain(rows, counts)
+
+    def _decode_plain(self, rows, counts):
+        rows = rows.split(counts)
         recon = _dequant(rows[0], self.steps)
         grand = torch.zeros((self.n_roots,), dtype=_I64, device=self.device)
         for gi in range(self.depth):
             g = self.depth - 1 - gi
             qz, qy, qx = rows[1 + 3 * gi:4 + 3 * gi]
-            recon, grand = _dec_group(
+            recon, grand = _dec_group_ref(
                 recon, grand, qz, qy, qx, self.steps, self.plans[g],
                 **self._group_kw(gi))
         return (recon + HALF) >> F
+
+    def _decode_kernels(self, rows, launchers):
+        """The decoder's loop as the card runs it: ``depth`` group
+        launches over the (total, C) int64 q rows, the first
+        dequantising the roots, each handing the next its children's
+        Q13 means, the last writing (v + HALF) >> F."""
+        _, group_launch = launchers
+        _, root_rows, groups = self._rows()
+        c = rows.shape[1]
+        recon, pf, grand = None, None, None
+        for gi in range(self.depth):
+            g = self.depth - 1 - gi
+            p = self.plans[g]
+            mp, mc, _ = _group_shapes(p)
+            last = gi == self.depth - 1
+            recon_c, cnt = rows.new_empty(mc, c), rows.new_empty(mc)
+            pf_c = None if last else rows.new_empty(mc, c)
+            mode = MODE_DECODE | (MODE_ROOT if gi == 0 else MODE_HAVE_GRAND) \
+                | (MODE_FINAL if last else 0)
+            group_launch(p, self.offsets[g], mp, mode, recon, pf, grand,
+                         self.steps, [rows[r] for r in groups[gi]],
+                         rows[root_rows] if gi == 0 else None,
+                         [None] * 3, None, recon_c, pf_c, cnt, self.t0,
+                         self.weights)
+            recon, pf, grand = recon_c, pf_c, cnt
+        return recon

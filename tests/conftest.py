@@ -20,3 +20,9 @@ if "xla_force_host_platform_device_count" not in flags:
 import jax
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (a hand-written kernel has no "
+        "CPU form); the test skips itself without one")
