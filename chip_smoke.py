@@ -11,7 +11,8 @@ printed line:
       power limit (the nvidia-smi line is printed on its own),
   (b) build of the port's native host library from ``native/`` with g++
       (its path and build seconds) and of the hand-written CUDA kernels
-      from ``csrc/`` with nvcc,
+      from ``csrc/`` with nvcc, with ptxas's registers, shared memory and
+      spills of ``raht_fp_group`` and ``octree_expand``,
   (c) each block kernel against its plain PyTorch version on the card,
       bit for bit, at ragged batch sizes and all 256 occupancy patterns,
       for 1 and 3 channels and, through the wrappers' split into runs of
@@ -30,7 +31,12 @@ printed line:
       ``decode_expand_stream``, ``raht_fp_truth_level`` at each truth
       level and ``raht_fp_group`` at each encode and decode group called
       alone, then both as ``DeviceFpRaht`` runs them against the plain
-      loop on one plan,
+      loop on one plan; the expansion also on a stream whose first
+      levels hold one node (nmax filled exactly and not), the group also
+      on parents of +-2^62 (its division's general path), with the
+      kernel's count of fast and general divisions there and over the
+      main path's 22 groups, and ``DeviceFpRaht``'s loop at 5 channels
+      (two channel windows) against the plain loop,
   (e) a depth-21 geometry round trip (the 63-bit Morton domain),
   (g) the rANS brick at the bench size through ``models.geometry_rans``
       (one table-pass launch and one emission per encode, one decode
@@ -119,15 +125,19 @@ printed line:
       kernel against its plain version at the shapes of (d), (g) and (p):
       the pass through the wrappers (CUDA events), its device time (the
       pass replayed as a CUDA graph), the largest level alone for the
-      block kernels, each kernel's bound and, for the rANS kernels, the
-      serial chain that floors them (for the emission as a time: its
-      steps times the step's dependent latency, measured by running the
-      chain alone); plus the rANS encode/decode wall times, first and
-      warm, and one warm rANS encode and decode under ``torch.profiler``:
+      block kernels and the expansion and the largest group alone, each
+      kernel's bound (the groups' SASS instructions at the SM clock
+      beside it, as a diagnostic of the code, not a bound) and, for the
+      rANS kernels and the expansion, the serial chain that
+      floors them (as a time: its steps times one step's dependent
+      latency, measured by running the chain alone); plus the rANS
+      encode/decode wall times, first and warm, and one warm rANS encode
+      and decode under ``torch.profiler``:
       the device operations that took most time, the device-busy share
       of the wall, and the host calls that wait for the device.
 
-Then one JSON line with the kernels and, last, the result line
+Then the script's own wall time (``[z] smoke_s=``), one JSON line with
+the kernels and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero; without CUDA it exits non-zero before any phase.
 It imports no jax.
@@ -689,6 +699,9 @@ def phase_p(device, uniq, depth, colors, qp=BENCH_QP):
         "as decode_expand_stream"))
     _check(np.array_equal(got[0][:n].cpu().numpy(), uniq),
            "the expansion does not give the input codes back")
+    errs["octree_expand"] = max(errs["octree_expand"],
+                                _expand_edge_checks(uniq, depth, stream,
+                                                    device))
 
     steps = [qp_to_step_q16(qp)] * colors.shape[1]
     t0 = time.perf_counter()
@@ -725,6 +738,12 @@ def phase_p(device, uniq, depth, colors, qp=BENCH_QP):
     errs["raht_fp_group"] = max(errs["raht_fp_group"], _equal_or_fail(
         "raht_fp_group", (rec_k, dec_k), (rec_p, dec_p),
         "in DeviceFpRaht's loop"))
+    if device.type == "cuda":
+        errs["raht_fp_group"] = max(errs["raht_fp_group"],
+                                    _group_division_checks(dv, vals, enc,
+                                                           rows))
+    errs["raht_fp_group"] = max(errs["raht_fp_group"],
+                                _group_wide_checks(dv, vals, launchers))
     _sync(device)
     _line("p", occ_u8_caps=f"{cap},{small}", nodes=total,
           expand_levels=depth, truth_levels=len(truth), enc_groups=len(enc),
@@ -733,8 +752,145 @@ def phase_p(device, uniq, depth, colors, qp=BENCH_QP):
           plan_s=f"{plan_s:.1f}",
           phase_s=f"{time.perf_counter() - t_phase:.1f}")
     return errs, SimpleNamespace(codes=codes, cap=cap, stream=stream,
+                                 expand_levels=levels, expand_tabs=tabs,
                                  truth=truth, enc=enc, dec=dec, dv=dv,
                                  vals=vals, rows=rows)
+
+
+def _expand_edge_checks(uniq, depth, stream, device):
+    """``octree_expand`` against ``decode_expand_stream_ref`` on a stream
+    whose first levels hold one node each (the bench cloud's points in
+    the level-3 node of its first point) at nmax exactly (the last level
+    fills it) and with room to spare.  Returns the max abs difference."""
+    import torch
+
+    from mpeg_pcc_tmc13_tpu_torch.ops import octree
+    shift = 3 * (depth - 3)
+    corner = uniq[(uniq >> shift) == (uniq[0] >> shift)]
+    codes = torch.as_tensor(corner, device=device)
+    hdr = octree.encode_occ_u8_hdr_ref(codes, depth,
+                                       depth * corner.size + 64)
+    counts = hdr[:4 * depth].view(torch.int32)
+    _check(counts[:4].tolist() == [1, 1, 1, 1],
+           f"(p) the corner stream's first levels: {counts[:4].tolist()}")
+    occ = hdr[4 * depth:].contiguous()
+    err = 0
+    for nmax in (corner.size, corner.size + 37):
+        err = max(err, _equal_or_fail(
+            "octree_expand",
+            octree.decode_expand_stream(occ, counts, depth, nmax),
+            octree.decode_expand_stream_ref(occ, counts, depth, nmax),
+            f"on one-node first levels, nmax {nmax}"))
+    _line("p", kernel="octree_expand", corner_points=corner.size,
+          corner_counts=counts.tolist(), nmax_exact="identical",
+          nmax_spare="identical")
+    return err
+
+
+def _group_call_stats(args, kw, decode, stats):
+    """``_enc_group``/``_dec_group``'s launch with a division count."""
+    import torch
+
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp_device as fpd
+    recon_p, grand_p, r0, r1, r2, steps, p = args
+    mp, mc, counts = fpd._group_shapes(p)
+    c = steps.shape[0]
+    recon_c = recon_p.new_empty(mc, c)
+    cnt = recon_p.new_empty(mc)
+    q = [None] * 3 if decode else [recon_p.new_empty(n, c) for n in counts]
+    mode = (fpd.MODE_DECODE if decode else 0) | \
+        (fpd.MODE_HAVE_GRAND if kw["have_grand"] else 0)
+    fpd._cuda_group(p, fpd.row_offsets(p), mp, mode, recon_p, None,
+                    grand_p if kw["have_grand"] else None, steps,
+                    [r0, r1, r2], None, q, None, recon_c, None, cnt,
+                    kw["t0"], kw["weights"], stats=stats)
+    return (*q, recon_c, cnt) if not decode else (recon_c, cnt)
+
+
+def _group_division_checks(dv, vals, enc, rows):
+    """The division paths of ``raht_fp_group``: the kernel's count of
+    fast and general divisions over ``DeviceFpRaht``'s 11 encode and 11
+    decode groups (the main path), and a group whose parents'
+    reconstruction holds values of +-2^62 in every 5th row (their Q15
+    shifts wrap: the general path) held to ``_enc_group_ref`` and
+    ``_dec_group_ref``.  Returns the max abs difference."""
+    import functools
+
+    import torch
+
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp_device as fpd
+    dev = vals.device
+    main = torch.zeros(2, dtype=torch.int64, device=dev)
+    launch = functools.partial(fpd._cuda_group, stats=main)
+    truth = dv._truth_kernels(vals, fpd.CUDA_LAUNCHERS)
+    dv._enc_group_kernels(*truth, (fpd._cuda_truth, launch))
+    dv._decode_kernels(rows, (fpd._cuda_truth, launch))
+    args, kw = enc[len(enc) // 2]
+    g = torch.Generator(device=dev).manual_seed(62)
+    big = args[0].clone()
+    big[::5] = torch.randint(-(1 << 62), 1 << 62, big[::5].shape,
+                             generator=g, device=dev)
+    a = (big,) + tuple(args[1:])
+    extreme = torch.zeros(2, dtype=torch.int64, device=dev)
+    err = _equal_or_fail("raht_fp_group",
+                         _group_call_stats(a, kw, False, extreme),
+                         fpd._enc_group_ref(*a, **kw),
+                         "on parents of +-2^62 (encode)")
+    qz, qy, qx = fpd._enc_group_ref(*a, **kw)[:3]
+    d = (big, a[1], qz, qy, qx, a[5], a[6])
+    err = max(err, _equal_or_fail(
+        "raht_fp_group", _group_call_stats(d, kw, True, extreme),
+        fpd._dec_group_ref(*d, **kw), "on parents of +-2^62 (decode)"))
+    main, extreme = main.tolist(), extreme.tolist()
+    _check(extreme[1] > 0, "(p) the extreme group took no general-path "
+           "division")
+    _line("p", kernel="raht_fp_group", main_path_divisions_fast=main[0],
+          main_path_divisions_general=main[1],
+          extreme_group_blocks=int(a[6]["az"].shape[0]),
+          extreme_divisions_fast=extreme[0],
+          extreme_divisions_general=extreme[1], vs_ref="identical")
+    return err
+
+
+def _group_wide_checks(dv, vals, launchers, nc=5):
+    """``DeviceFpRaht``'s loop at ``nc`` > ``GROUP_WINDOW`` channels (the
+    group kernel's windows after the first gather their means again and
+    read their input rows from global memory) on ``dv``'s plan: the
+    colours and two channels more from them, steps from qp 22 and 28,
+    against the plain loop.  Returns the max abs difference."""
+    import copy
+
+    import torch
+
+    from mpeg_pcc_tmc13_tpu_torch.models.attr_raht import qp_to_step_q16
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp_device as fpd
+    _check(nc > fpd.GROUP_WINDOW, "the wide case needs two windows")
+    wide = copy.copy(dv)
+    extra = nc - vals.shape[1]
+    wide.steps = torch.cat([dv.steps, torch.full(
+        (extra,), qp_to_step_q16(28), dtype=torch.int64,
+        device=dv.steps.device)])
+    wvals = torch.cat([vals, (vals[:, :extra] * 7 + 3) % 256], 1)
+    rec_k, qbuf = wide._encode_kernels(wvals, launchers)
+    plain_q = []
+    rec_p = wide._encode_plain(wvals, plain_q.append)
+    _, root, groups = wide._rows()
+    host = qbuf.cpu().numpy()
+    cuts = [root] + [c for grp in groups for c in grp]
+    _check(all(np.array_equal(host[c], q) for c, q in zip(cuts, plain_q)),
+           f"(p) the group kernel at {nc} channels gives other q rows than "
+           "the plain loop")
+    rows = torch.as_tensor(np.concatenate(plain_q).astype(np.int64),
+                           device=wvals.device)
+    err = _equal_or_fail(
+        "raht_fp_group",
+        (rec_k, wide._decode_kernels(rows, launchers)),
+        (rec_p, wide._decode_plain(rows, [c.stop - c.start for c in cuts])),
+        f"in DeviceFpRaht's loop at {nc} channels")
+    _line("p", kernel="raht_fp_group", channels=nc,
+          windows=-(-nc // fpd.GROUP_WINDOW), q_rows=int(host.shape[0]),
+          vs_plain_loop="identical")
+    return err
 
 
 def _level_record(occ2, ctx2, counts, states0, words, K):
@@ -1905,29 +2061,8 @@ def _fp_issue_bound(nc, nblocks, run, launches=1500):
     the SM clock nvidia-smi reads while ``run`` keeps the card busy.
     Returns (ms, instructions a block, MHz)."""
     import torch
-
-    from mpeg_pcc_tmc13_tpu_torch.ops import _kernels
-    nvcc = _kernels._find_nvcc()
-    _check(nvcc is not None, "(m) no CUDA toolkit for cuobjdump")
-    sass = subprocess.run(
-        [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
-         str(_kernels.library_path())], capture_output=True, text=True,
-        check=True).stdout
-    name = f"raht_fp_fast_block_count_c{nc}"
-    at = sass.find(f"Function : {name}")
-    _check(at >= 0, f"(m) cuobjdump shows no {name}")
-    end = sass.find("Function : ", at + 1)
-    body = sass[at:end if end > 0 else None]
-    per_block = sum(1 for op in re.findall(r"/\*[0-9a-f]{4}\*/\s+([^;]*);",
-                                           body)
-                    if not op.strip().startswith("NOP"))
-    for _ in range(launches):       # ~0.5 s of work for the clock to show
-        run()
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
-         "nounits", "-i", str(torch.cuda.current_device())],
-        capture_output=True, text=True, check=True).stdout.split()[0])
-    torch.cuda.synchronize()
+    per_block = _sass_instructions(f"raht_fp_fast_block_count_c{nc}")
+    mhz = _sm_mhz_under(run, launches)   # ~0.5 s of work for the clock
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     warps = -(-nblocks // 32)
     return per_block * warps / (sms * 4 * mhz * 1e6) * 1e3, per_block, mhz
@@ -2083,26 +2218,121 @@ def _block_times(device, uniq, depth, colors, errs):
     return times
 
 
+def _sass_instructions(name):
+    """SASS instructions of kernel ``name`` in the built library
+    (``cuobjdump -sass``), every instruction but NOPs once."""
+    from mpeg_pcc_tmc13_tpu_torch.ops import _kernels
+    nvcc = _kernels._find_nvcc()
+    _check(nvcc is not None, "no CUDA toolkit for cuobjdump")
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+         str(_kernels.library_path())], capture_output=True, text=True,
+        check=True).stdout
+    m = re.search(rf"Function : {re.escape(name)}\s", sass)
+    _check(m is not None, f"cuobjdump shows no {name}")
+    at = m.start()
+    end = sass.find("Function : ", at + 1)
+    body = sass[at:end if end > 0 else None]
+    return sum(1 for op in re.findall(r"/\*[0-9a-f]{4}\*/\s+([^;]*);", body)
+               if not op.strip().startswith("NOP"))
+
+
+def _sm_mhz_under(run, launches):
+    """The SM clock nvidia-smi reads after ``launches`` calls of ``run``
+    keep the card busy."""
+    import torch
+    for _ in range(launches):
+        run()
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-i", str(torch.cuda.current_device())],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    torch.cuda.synchronize()
+    return mhz
+
+
+def _group_sass_issue(rec, run):
+    """The issue time of ``DeviceFpRaht``'s 22 groups as this code is
+    compiled (a diagnostic of the implementation, not a bound of the
+    function: it counts the instructions the kernel issues, not the
+    work the function needs): per tile of 32
+    parent blocks one warp runs the block prologue and W = min(C, 4)
+    warps a (block, channel) each (the SASS instructions of
+    ``raht_fp_group_prologue_count`` and of ``raht_fp_group_block_count_
+    enc``/``_dec``, every branch once: with ~10 blocks a warp each child
+    and pair slot is present in some lane), one warp instruction a cycle
+    on each of the 4 schedulers of every SM at the SM clock under load.
+    The staging and the gather are left out.  Returns (ms, prologue,
+    encode and decode instructions, MHz)."""
+    import torch
+
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp_device as fpd
+    pro = _sass_instructions("raht_fp_group_prologue_count")
+    blk = {s: _sass_instructions(f"raht_fp_group_block_count_{s}")
+           for s in ("enc", "dec")}
+    nc = rec.vals.shape[1]
+    w = min(nc, fpd.GROUP_WINDOW)
+    warp_instr = 0
+    for steps, side in ((rec.enc, "enc"), (rec.dec, "dec")):
+        for a, _ in steps:
+            tiles = -(-a[6]["az"].shape[0] // fpd.GROUP_TILE)
+            warp_instr += tiles * (pro + w * blk[side] * -(-nc // w))
+    mhz = _sm_mhz_under(run, 200)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (warp_instr / (sms * 4 * mhz * 1e6) * 1e3, pro, blk["enc"],
+            blk["dec"], mhz)
+
+
+def _expand_bytes(stream):
+    """What the expansion of ``stream`` must move: each level's bytes and
+    (below the root) its parents' codes read, the intermediate levels'
+    children's codes written and read back, the final level's nmax codes
+    (padding included) written, the counts read."""
+    occ, counts, depth, nmax = stream
+    rows = [min(int(c), nmax) for c in counts.tolist()]
+    pops = np.unpackbits(occ.cpu().numpy()[:, None], axis=1).sum(axis=1)
+    off, tot = 0, []
+    for r, c in zip(rows, counts.tolist()):
+        tot.append(int(pops[off:off + r].sum()))
+        off += int(c)
+    return (sum(rows) + 8 * sum(rows[1:])
+            + 8 * sum(min(t, nmax) for t in tot[:-1]) + 8 * nmax
+            + 4 * depth)
+
+
 def _headline_times(rec):
     """The headline path's four kernels against their plain versions at
     (p)'s shapes, in turns, each pass as the main path runs it: the
     occupancy pass of the bench cloud, the expansion of its stream (a
-    counting launch and one a level), ``DeviceFpRaht``'s 11 truth levels,
-    and its 11 encode then 11 decode groups (the means handed on); the
-    plain pass is the 11 or 22 ``_ref`` calls of the same steps.  Each
-    with the bytes it must move (each step's inputs read once and its
-    outputs written once: the plan tensors the kernel reads; the
-    expansion's intermediate levels and the groups' hand-on left out)."""
+    counting launch and one a level), ``DeviceFpRaht``'s 11
+    truth levels, and its 11 encode then 11 decode groups (the means
+    handed on); the plain pass is the 11 or 22 ``_ref`` calls of the same
+    steps.  Each with the bytes it must move (each step's inputs read once
+    and its outputs written once: the plan tensors the kernel reads; the
+    expansion's intermediate levels counted, the groups' hand-on not).
+    Then, for the two kernels redesigned last: one link of the
+    expansion's chain alone (its chain bound: the 12 links of a stream)
+    and its largest level alone; the largest group alone (the finest
+    encode group, means handed on) and the groups' SASS issue time (a
+    diagnostic; their bound stays the byte bound).  Returns (times,
+    chain bounds)."""
+    import torch
+
     from mpeg_pcc_tmc13_tpu_torch.ops import octree
     from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp_device as fpd
+    from mpeg_pcc_tmc13_tpu_torch.scripts.kernel_turns import \
+        largest_encode_group
 
     def plan(p):                        # the 22 plan tensors a group reads
         return fpd.kernel_plan(p, fpd.row_offsets(p))
     nbf = len(fpd.BUTTERFLY_KEYS) + 3   # the 16 the truth level reads
-    times = {}
+    times, chains = {}, {}
     depth = rec.stream[2]
     occ_args = (rec.codes, depth, rec.cap)
     truth = rec.dv._truth_kernels(rec.vals, fpd.CUDA_LAUNCHERS)
+    group_pass = (
+        lambda: (rec.dv._enc_group_kernels(*truth, fpd.CUDA_LAUNCHERS),
+                 rec.dv._decode_kernels(rec.rows, fpd.CUDA_LAUNCHERS)))
     cases = {
         "octree_occ_u8": (
             lambda: octree.encode_occ_u8_hdr(*occ_args),
@@ -2112,8 +2342,7 @@ def _headline_times(rec):
         "octree_expand": (
             lambda: octree.decode_expand_stream(*rec.stream),
             lambda: octree.decode_expand_stream_ref(*rec.stream),
-            _io_bytes(*rec.stream[:2],
-                      *octree.decode_expand_stream_ref(*rec.stream)),
+            _expand_bytes(rec.stream),
             dict(levels=depth, nmax=rec.stream[3])),
         "raht_fp_truth_level": (
             lambda: rec.dv._truth_kernels(rec.vals, fpd.CUDA_LAUNCHERS),
@@ -2122,8 +2351,7 @@ def _headline_times(rec):
                 for a, _ in rec.truth),
             dict(levels=len(rec.truth))),
         "raht_fp_group": (
-            lambda: (rec.dv._enc_group_kernels(*truth, fpd.CUDA_LAUNCHERS),
-                     rec.dv._decode_kernels(rec.rows, fpd.CUDA_LAUNCHERS)),
+            group_pass,
             lambda: ([fpd._enc_group_ref(*a, **kw) for a, kw in rec.enc],
                      [fpd._dec_group_ref(*a, **kw) for a, kw in rec.dec]),
             sum(_io_bytes(*a[:6], *plan(a[6]), *ref(*a, **kw))
@@ -2139,7 +2367,43 @@ def _headline_times(rec):
         _line("f", kernel=name, pass_ms=f"{k:.4f}", device_ms=f"{d:.4f}",
               bound_ms=f"{bound:.4f}", bound_by=by,
               share=f"{bound / d:.4f}", bytes=nbytes)
-    return times
+
+    # the expansion: one link of its chain alone, the largest level
+    n = rec.stream[3]
+    links = depth + 1                   # a counting launch, one a level
+    link_ms = _graph_ms(lambda: [octree.expand_chain_probe(
+        n, rec.codes.device) for _ in range(links)]) / links
+    chains["octree_expand"] = links * link_ms
+    big = rec.expand_levels[-1]
+    big_ms = _graph_ms(lambda: octree._expand_level(*big))
+    big_bound, _ = _bound_ms(_io_bytes(*big[:2], *octree._expand_level_ref(
+        *big, *rec.expand_tabs)))
+    k, p, d, bound, by = times["octree_expand"]
+    _line("f", kernel="octree_expand", link_ms=f"{link_ms:.5f}",
+          chain_bound_ms=f"{links * link_ms:.4f}",
+          byte_bound_ms=f"{bound:.4f}",
+          share=f"{max(bound, links * link_ms) / d:.4f}",
+          largest_level_rows=n, largest_level_ms=f"{big_ms:.4f}",
+          largest_level_bound_ms=f"{big_bound:.4f}",
+          largest_level_share=f"{big_bound / big_ms:.4f}")
+
+    # the groups: the largest alone, and the issue time of the 22 as
+    # compiled (a diagnostic: the bound stays the byte bound)
+    a, kw = largest_encode_group(rec.dv, truth)
+    big_ms = _graph_ms(lambda: fpd._cuda_group(*a, **kw))
+    ea, ekw = rec.enc[-1]
+    big_bound, _ = _bound_ms(_io_bytes(*ea[:6], *plan(ea[6]),
+                                       *fpd._enc_group_ref(*ea, **ekw)))
+    issue, pro, blk_enc, blk_dec, mhz = _group_sass_issue(rec, group_pass)
+    k, p, d, bound, by = times["raht_fp_group"]
+    _line("f", kernel="raht_fp_group", byte_bound_ms=f"{bound:.4f}",
+          share=f"{bound / d:.4f}", sass_issue_ms=f"{issue:.4f}",
+          sass_prologue=pro, sass_block_enc=blk_enc,
+          sass_block_dec=blk_dec, sm_mhz=mhz,
+          largest_group_blocks=int(a[2]), largest_group_ms=f"{big_ms:.4f}",
+          largest_group_bound_ms=f"{big_bound:.4f}",
+          largest_group_share=f"{big_bound / big_ms:.4f}")
+    return times, chains
 
 
 def phase_f(device, uniq, depth, colors, rans, errs, headline):
@@ -2178,7 +2442,9 @@ def phase_f(device, uniq, depth, colors, rans, errs, headline):
     times = _block_times(device, uniq, depth, colors, errs)
     rans_times, chain_ms = _rans_times(rans)
     times.update(rans_times)
-    times.update(_headline_times(headline))
+    head_times, head_chains = _headline_times(headline)
+    times.update(head_times)
+    chain_ms.update(head_chains)
     return times, chain_ms
 
 
@@ -2588,7 +2854,45 @@ def _level_bytes(rec):
     return nbytes, touched
 
 
+# the kernels whose registers, shared memory and spills (b) prints, by a
+# part of their (possibly mangled) entry names
+PTXAS_KERNELS = ("raht_fp_group_kernel", "octree_expand_count_kernel",
+                 "octree_expand_level_kernel")
+
+
+def _ptxas_report(so, names):
+    """{entry: {registers, static_smem_bytes, spill_stores, spill_loads}}
+    of the entries whose names contain one of ``names``, from ptxas's
+    report in the build log beside the library (``-Xptxas=-v``); the
+    kernel's ``<src>`` instance is the one that writes source rows."""
+    out, current = {}, None
+    for line in so.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = next((n for n in names if n in m.group(1)), None)
+            if current and "Lb1EE" in m.group(1):
+                current += "<src>"
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(current, {}).update(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m:
+            out.setdefault(current, {}).update(
+                registers=int(m.group(1)),
+                static_smem_bytes=int(m.group(2) or 0))
+            current = None
+    _check(all(any(n in k for k in out) for n in names),
+           f"(b) ptxas reported none of some kernels: {sorted(out)}")
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -2620,6 +2924,10 @@ def main() -> int:
     _kernels.load()
     _line("b", library=so.name, nvcc_s=f"{secs:.1f}",
           flags=" ".join(_kernels.NVCC_FLAGS).replace(" ", "_"))
+    for name, report in _ptxas_report(so, PTXAS_KERNELS).items():
+        _line("b", kernel=name, **report)
+    _line("b", kernel="raht_fp_group_kernel",
+          dynamic_smem_bytes_c3=_kernels.load().raht_fp_group_smem_bytes(3))
 
     errs = phase_c(device)                                     # (c)
     uniq, colors = bench_cloud()
@@ -2647,6 +2955,7 @@ def main() -> int:
                               colors, rans, errs, headline)
     times.update(m_times)
 
+    _line("z", smoke_s=f"{time.perf_counter() - t_start:.1f}")
     kernels = []
     for key, (name, src, replaces) in KERNELS.items():
         ms, plain_ms, device_ms, bound_ms, bound_by = times[key]

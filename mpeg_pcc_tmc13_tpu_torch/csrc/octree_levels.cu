@@ -11,37 +11,52 @@
 // Their plain PyTorch versions are ops/octree.py's encode_occ_u8_ref and
 // _expand_level_ref, which these equal bit for bit.
 //
-// What bounds them on an H100: memory, and far below it launch latency.
+// What bounds them on an H100: memory, and below it launch latency.
 // The occupancy pass must read the N codes (8 B each) and write one byte
 // per node (~2 per point): ~10 B a point, ~3 us for the bench's 889,682
-// points at 3.35 TB/s.  A level of the expansion reads one byte and
-// writes a code (8 B, plus 8 B of source row where asked) per row.  So
-// the design keeps the int64 (depth, N) intermediates of the plain
-// versions out of device memory altogether:
+// points at 3.35 TB/s.  A decoder level reads its rows' bytes and
+// parents' codes and writes its children's codes (8 B each); the stream's
+// 11 levels depend on each other in a chain.
 //
-// * Both are two grid passes over tiles of kTile = 4096 rows (256
-//   threads, 16 rows each).  The first pass counts per tile (the
-//   occupancy pass: each point's first level, as a histogram over the
-//   levels; the expansion: the children of the tile's nodes) and the
-//   last CTA to finish (a ticket on an atomic counter, after a
-//   __threadfence: the threadFenceReduction pattern, no CTA ever waits)
-//   scans the tile counts into each tile's exclusive prefix and the
-//   totals.  The second pass scans within its tile (warp ballots or a
-//   shuffle scan, then the warps' sums in shared memory) and adds the
-//   tile's prefix: every node's slot is known in closed form.
-// * The occupancy pass takes a point's first level from __clzll of
-//   c[i] ^ c[i-1] (the reference's clz, which torch lacks), ranks the
-//   points of a level with one __ballot_sync a level and round, and ORs
-//   each child's octant bit into its node's byte with a 32-bit atomicOr
-//   on the zeroed output (the bytes of a word belong to neighbouring
-//   nodes).  Octants come from the int64 code, so depth 21 is exact.
-// * The expansion scatters: the node of row j writes its r-th child at
-//   starts[j] + r, walking its set bits in order, and each tile writes
-//   the padding rows (>= the child count) of its own row range, so no
-//   pass fills the outputs first.  The decoder runs the counting pass of
-//   every level in one launch (the bytes of all levels are known), then
-//   one launch a level.
-//
+// * The occupancy pass is two grid passes over tiles of kTile = 4096 rows
+//   (256 threads, 16 rows each).  The first counts per tile (each point's
+//   first level, as a histogram over the levels) and the last CTA to
+//   finish (a ticket on an atomic counter, after a __threadfence: the
+//   threadFenceReduction pattern, no CTA ever waits) scans the tile
+//   counts into each tile's exclusive prefix and the totals.  The second
+//   takes a point's first level from __clzll of c[i] ^ c[i-1] (the
+//   reference's clz, which torch lacks), ranks the points of a level with
+//   one __ballot_sync a level and round, and ORs each child's octant bit
+//   into its node's byte with a 32-bit atomicOr on the zeroed output (the
+//   bytes of a word belong to neighbouring nodes).  Octants come from the
+//   int64 code, so depth 21 is exact.
+// * The expansion's first design ran every level over nmax rows, each
+//   thread over 16 consecutive rows, wrote INT64_MAX on every level's
+//   padding rows (~11 x 7 MB nothing reads) and summed the earlier
+//   levels' counts in every thread.  Here:
+//   - Only real rows.  Every level's bytes are in the stream, so one
+//     counting launch takes the children of every tile (kXTile = 2048
+//     rows) of every level at once: a flat grid over the (level, tile)
+//     pairs that hold rows, each level's span (offset, rows = min(count,
+//     nmax)) from one warp's scan of the counts, each round's prefix
+//     within its tile, and each level's last tile to finish scans the
+//     level's tiles: every child's slot is known before any code is.
+//     Then a launch a level on a resident grid striding over the level's
+//     rounds (its row count read on the device; CTAs with none return at
+//     once); the intermediate levels go into two ping-pong buffers with no
+//     padding; only the final level writes INT64_MAX (and nmax - 1 as
+//     source row) past its count.
+//   - Rows to lanes.  In a round of 256 rows lane i takes row base + i
+//     (its byte and its parent's code read side by side, coalesced), a
+//     block scan of the popcounts places each node's children, and the
+//     round's run of children is staged in shared memory and stored
+//     contiguously.
+//   - The level walk: a launch a level, 1 + depth launches a stream.  One
+//     cooperative launch with a grid barrier between levels was measured
+//     beside it and was slower (a barrier cost more than a launch in a
+//     CUDA graph; PERF.md), so it is not kept.  octree_expand_chain_probe
+//     times one link of the chain alone.
+
 // Launcher contract (ops/octree.py): pointers from torch tensors on the
 // caller's current stream, sizes as int64, the scratch from torch.empty;
 // each launcher returns cudaGetLastError().
@@ -231,117 +246,262 @@ octree_occ_scatter_kernel(const long long* __restrict__ c, long long n,
 
 // ---- octree_expand -----------------------------------------------------
 
-// Where a level's bytes come from: a level of the level-major stream
-// (counts given: row r reads occ[min(offs[l] + r, cap - 1)] below
-// counts[l], else 0), or a whole (nrows,) array (counts null).
-struct OccLevel {
+constexpr int kXThreads = 256;                 // a round: one row a lane
+constexpr int kXRounds = 8;                    // rounds a counting tile
+constexpr int kXTile = kXThreads * kXRounds;   // rows a counting CTA
+constexpr int kXWarps = kXThreads / 32;
+constexpr int kXBuf = kXThreads * 8;           // children a round, at most
+
+// Where the levels' bytes come from: the level-major stream (counts
+// given: level l's row r reads occ[min(off_l + r, cap - 1)] below
+// min(counts[l], nmax), off_l the counts before l), or one whole (nmax,)
+// array (counts null, one level).
+struct XStream {
   const unsigned char* occ;
   long long cap;           // bytes in occ
-  const int* counts;       // (depth,) node counts, or null
-  long long nrows;         // rows of a level (nmax)
+  const int* counts;       // (levels,) node counts, or null
+  long long nmax;          // output rows
+  int levels;
 };
 
-// (offset, rows with a byte) of level l
-__device__ __forceinline__ void level_span(const OccLevel& s, int l,
-                                           long long* off, long long* cnt) {
-  if (s.counts == nullptr) {
-    *off = 0;
-    *cnt = s.nrows;
-    return;
-  }
-  long long o = 0;
-  for (int k = 0; k < l; ++k) o += s.counts[k];
-  *off = o;
-  *cnt = s.counts[l];
-}
-
-__device__ __forceinline__ unsigned occ_byte(const OccLevel& s, long long off,
-                                             long long cnt, long long r) {
-  if (r >= cnt) return 0;
-  return s.occ[min(off + r, s.cap - 1)];
-}
-
-struct ExpandScratch {
-  unsigned* tickets;     // (levels,) zeroed by the launcher
-  long long* cnt;        // (levels, tiles) children per tile
-  long long* excl;       // (levels, tiles) exclusive prefixes
-  long long* tot;        // (levels,) children per level
+struct XScratch {          // long long words
+  unsigned* tickets;       // (levels,) zeroed by the launcher
+  long long* off;          // (levels,) off_l
+  long long* rows;         // (levels,) rows with a byte: min(count, nmax)
+  long long* pre;          // (levels, rounds) a round's prefix in its tile
+  long long* cnt;          // (levels, tiles) children a counting tile
+  long long* excl;         // (levels, tiles) exclusive prefixes
+  long long* tot;          // (levels,) children a level (not clamped)
 };
 
-// grid (tiles, levels): children per tile of every level, then each
-// level's last CTA scans them
-__global__ void __launch_bounds__(kThreads)
-octree_expand_count_kernel(OccLevel src, ExpandScratch s, long long tiles) {
-  __shared__ long long sh[kWarps];
-  const int l = blockIdx.y;
-  long long off, cnt;
-  level_span(src, l, &off, &cnt);
-  const long long r0 = (long long)blockIdx.x * kTile + threadIdx.x *
-                       (long long)kPerThread;
-  long long mine = 0;
-  for (int k = 0; k < kPerThread; ++k) {
-    long long r = r0 + k;
-    if (r < src.nrows) mine += __popc(occ_byte(src, off, cnt, r));
-  }
-  long long total;
-  block_exclusive_scan(mine, sh, &total);
-  if (threadIdx.x == 0) s.cnt[l * tiles + blockIdx.x] = total;
-  if (!last_to_finish(s.tickets + l, gridDim.x)) return;
-  scan_tiles(s.cnt + l * tiles, s.excl + l * tiles, s.tot + l, tiles, 1,
-             sh);
+long long rounds_of(long long nrows) {
+  return (nrows + kXThreads - 1) / kXThreads;
 }
 
-// One level: node codes (or the root: row 0 holds code 0, every other
-// row INT64_MAX) -> child codes, padded with INT64_MAX; src (may be
-// null) the parent row of each child slot, nmax - 1 on padding rows;
-// new_cnt the child count (0-d int64).
-__global__ void __launch_bounds__(kThreads)
-octree_expand_level_kernel(OccLevel src, ExpandScratch s, long long tiles,
-                           int l, const long long* __restrict__ nodes,
-                           long long* __restrict__ out,
-                           long long* __restrict__ src_row,
-                           long long* __restrict__ new_cnt) {
-  __shared__ long long sh[kWarps];
-  long long off, cnt;
-  level_span(src, l, &off, &cnt);
-  const long long nmax = src.nrows;
-  const long long total = s.tot[l];
-  const long long r0 = (long long)blockIdx.x * kTile + threadIdx.x *
-                       (long long)kPerThread;
-  unsigned occ[kPerThread];
-  long long mine = 0;
+// scratch: 3 levels + levels (rounds + 2 tiles) long longs
+XScratch x_scratch(void* scratch, void* tot, int levels, long long rounds) {
+  long long* sc = (long long*)scratch;
+  const long long tiles = (rounds + kXRounds - 1) / kXRounds;
+  long long* pre = sc + 3 * levels;
+  long long* cnt = pre + levels * rounds;
+  long long* excl = cnt + levels * tiles;
+  return XScratch{(unsigned*)sc, sc + levels, sc + 2 * levels, pre, cnt,
+                  excl, (long long*)tot};
+}
+
+// Warp 0: every level's (off_l, rows_l) at once, lane l taking level l
+// (a shuffle scan of the counts), into off and rows (shared memory).
+__device__ __forceinline__ void level_spans(const XStream& s, long long* off,
+                                            long long* rows) {
+  const int lane = threadIdx.x;
+  const long long c =
+      s.counts != nullptr && lane < s.levels ? s.counts[lane] : 0;
+  long long inc = c;
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    long long r = r0 + k;
-    occ[k] = r < nmax ? occ_byte(src, off, cnt, r) : 0;
-    mine += __popc(occ[k]);
+  for (int d = 1; d < 32; d <<= 1) {
+    const long long o = __shfl_up_sync(0xffffffffu, inc, d);
+    if (lane >= d) inc += o;
   }
-  long long all;
-  long long start = s.excl[l * tiles + blockIdx.x] +
-                    block_exclusive_scan(mine, sh, &all);
+  if (lane < s.levels) {
+    off[lane] = s.counts != nullptr ? inc - c : 0;
+    rows[lane] = s.counts != nullptr ? min(c, s.nmax) : s.nmax;
+  }
+}
+
+__device__ __forceinline__ unsigned occ_byte(const XStream& s, long long off,
+                                             long long rows, long long r) {
+  return r < rows ? s.occ[min(off + r, s.cap - 1)] : 0u;
+}
+
+// Counting tile t of a level (kXRounds rounds): each round's children,
+// their exclusive prefix within the tile into pre, the tile's sum into
+// cnt[t] (rounds past the level's rows count 0).  All threads of the CTA.
+__device__ void count_tile(const XStream& s, long long off, long long rows,
+                           long long t, long long rounds, long long* pre,
+                           long long* cnt) {
+  __shared__ int part[kXRounds][kXWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned b[kXRounds];
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const long long r = r0 + k;
-    unsigned b = occ[k];
-    if (b) {
-      const long long node = nodes ? nodes[r] : (r == 0 ? 0 : kI64Max);
-      const unsigned long long up = (unsigned long long)node << 3;
-      while (b) {
-        const int bit = __ffs(b) - 1;
-        b &= b - 1;
-        if (start < nmax) {
-          out[start] = (long long)(up | (unsigned long long)bit);
-          if (src_row) src_row[start] = r;
-        }
-        ++start;
-      }
+  for (int k = 0; k < kXRounds; ++k)
+    b[k] = occ_byte(s, off, rows, (t * kXRounds + k) * kXThreads +
+                                      threadIdx.x);
+#pragma unroll
+  for (int k = 0; k < kXRounds; ++k) {
+    const int c = __reduce_add_sync(0xffffffffu, (unsigned)__popc(b[k]));
+    if (lane == 0) part[k][warp] = c;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {              // lane k: round k
+    long long sum = 0;
+    if (lane < kXRounds) {
+#pragma unroll
+      for (int w = 0; w < kXWarps; ++w) sum += part[lane][w];
     }
-    if (r < nmax && r >= total) {
-      out[r] = kI64Max;
-      if (src_row) src_row[r] = nmax - 1;
+    long long inc = sum;
+#pragma unroll
+    for (int d = 1; d < kXRounds; d <<= 1) {
+      const long long o = __shfl_up_sync(0xffffffffu, inc, d);
+      if (lane >= d) inc += o;
+    }
+    const long long round = t * kXRounds + lane;
+    if (lane < kXRounds && round < rounds) pre[round] = inc - sum;
+    if (lane == kXRounds - 1) cnt[t] = inc;
+  }
+  __syncthreads();                     // part is reused by the next tile
+}
+
+// Round t of a level: lane i takes row 256 t + i (its byte and parent
+// code read coalesced), a block scan of the popcounts places each node's
+// children (its set bits, lowest first: code (node << 3) | bit) in the
+// round's run, which the CTA stages in shared memory and stores
+// contiguously from the round's prefix on; slots >= nmax are dropped.
+// prev: the level above's codes, rows >= prev_rows INT64_MAX; null at the
+// root (row 0 code 0, every other INT64_MAX).  kSrc: also each slot's
+// parent row.
+template <bool kSrc>
+__device__ void expand_round(const XStream& s, const XScratch& x,
+                             long long rounds, int l, long long off,
+                             long long rows, long long t,
+                             const long long* prev, long long prev_rows,
+                             long long* out, long long* src,
+                             unsigned long long* code_buf, int* row_buf,
+                             long long* sh) {
+  const long long tiles = (rounds + kXRounds - 1) / kXRounds;
+  const long long base = __ldcg(x.excl + l * tiles + t / kXRounds) +
+                         __ldcg(x.pre + l * rounds + t);
+  const long long r = t * kXThreads + threadIdx.x;
+  unsigned b = occ_byte(s, off, rows, r);
+  long long node;                      // loaded beside the byte
+  if (prev)
+    node = r < prev_rows ? __ldcg(prev + r) : kI64Max;
+  else
+    node = r == 0 ? 0 : kI64Max;
+  long long run;
+  long long e = block_exclusive_scan(__popc(b), sh, &run);
+  const unsigned long long up = (unsigned long long)node << 3;
+  while (b) {
+    const int bit = __ffs(b) - 1;
+    b &= b - 1;
+    code_buf[e] = up | (unsigned long long)bit;
+    if (kSrc) row_buf[e] = (int)r;
+    ++e;
+  }
+  __syncthreads();
+  for (long long i = threadIdx.x; i < run; i += kXThreads) {
+    const long long slot = base + i;
+    if (slot < s.nmax) {
+      out[slot] = (long long)code_buf[i];
+      if (kSrc) src[slot] = row_buf[i];
     }
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *new_cnt = total;
+  __syncthreads();                     // the buffers are written again
+}
+
+// The final level's padding rows of round t's range of the output:
+// INT64_MAX, and nmax - 1 as their source row.
+__device__ __forceinline__ void pad_round(const XStream& s, long long total,
+                                          long long t, long long* out,
+                                          long long* src) {
+  const long long r = t * kXThreads + threadIdx.x;
+  if (r >= total && r < s.nmax) {
+    out[r] = kI64Max;
+    if (src) src[r] = s.nmax - 1;
+  }
+}
+
+// The counting launch, a flat grid over every level's counting tiles (a
+// CTA a (level, tile) pair holding rows, striding when the grid is
+// short): each round's and tile's children, then the last tile of each
+// level to finish scans that level's tiles.  CTA 0 writes every level's
+// span, and a zero count for a level with no rows.
+__global__ void __launch_bounds__(kXThreads)
+octree_expand_count_kernel(XStream s, XScratch x, long long rounds) {
+  __shared__ long long sh[kXWarps];
+  __shared__ long long offs[kMaxDepth], rows_of[kMaxDepth];
+  __shared__ long long first[kMaxDepth + 1];
+  const long long tiles = (rounds + kXRounds - 1) / kXRounds;
+  if (threadIdx.x < 32) {
+    level_spans(s, offs, rows_of);
+    __syncwarp();
+    const int lane = threadIdx.x;
+    const long long nt =
+        lane < s.levels ? (rows_of[lane] + kXTile - 1) / kXTile : 0;
+    long long inc = nt;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long o = __shfl_up_sync(0xffffffffu, inc, d);
+      if (lane >= d) inc += o;
+    }
+    if (lane <= s.levels) first[lane] = inc - nt;
+  }
+  __syncthreads();
+  if (blockIdx.x == 0 && threadIdx.x < s.levels) {
+    x.off[threadIdx.x] = offs[threadIdx.x];
+    x.rows[threadIdx.x] = rows_of[threadIdx.x];
+    if (rows_of[threadIdx.x] <= 0) x.tot[threadIdx.x] = 0;
+  }
+  for (long long i = blockIdx.x; i < first[s.levels]; i += gridDim.x) {
+    int l = 0;
+    while (first[l + 1] <= i) ++l;
+    const long long t = i - first[l];
+    count_tile(s, offs[l], rows_of[l], t, rounds, x.pre + l * rounds,
+               x.cnt + l * tiles);
+    const long long nt = first[l + 1] - first[l];
+    if (last_to_finish(x.tickets + l, (unsigned)nt))
+      scan_tiles(x.cnt + l * tiles, x.excl + l * tiles, x.tot + l, nt, 1,
+                 sh);
+    __syncthreads();
+  }
+}
+
+// One level, a launch on a resident grid striding over the level's
+// rounds (read on the device: CTAs with none return at once).
+// prev_rows < 0: the level above's child count, clamped to nmax (the
+// stream's walk).  With `final` the CTAs then write the padding rows.
+template <bool kSrc>
+__global__ void __launch_bounds__(kXThreads)
+octree_expand_level_kernel(XStream s, XScratch x, long long rounds, int l,
+                           const long long* prev, long long prev_rows,
+                           long long* out, long long* src, int final) {
+  __shared__ long long sh[kXWarps];
+  __shared__ unsigned long long code_buf[kXBuf];
+  __shared__ int row_buf[kSrc ? kXBuf : 1];
+  const long long rows = x.rows[l];
+  const long long nr = (rows + kXThreads - 1) / kXThreads;
+  if (blockIdx.x < nr) {
+    if (prev_rows < 0) prev_rows = min(x.tot[l - 1], s.nmax);
+    const long long off = x.off[l];
+    for (long long t = blockIdx.x; t < nr; t += gridDim.x)
+      expand_round<kSrc>(s, x, rounds, l, off, rows, t, prev, prev_rows,
+                         out, src, code_buf, row_buf, sh);
+  }
+  if (final) {
+    const long long total = x.tot[l];
+    for (long long t = blockIdx.x; t < rounds; t += gridDim.x)
+      pad_round(s, total, t, out, src);
+  }
+}
+
+// The chain probe: an empty launch on the level launches' grid, the
+// dependency between two level launches (chip_smoke (f)'s chain bound).
+__global__ void __launch_bounds__(kXThreads)
+octree_expand_chain_probe_kernel() {}
+
+// The resident grid of `kernel` for `rounds` rounds: as many CTAs as fit
+// on every SM, at most one a round.
+template <typename K>
+long long resident_grid(K kernel, long long rounds, cudaError_t* e) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((*e = cudaGetDevice(&dev)) != cudaSuccess) return 0;
+  *e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (*e != cudaSuccess) return 0;
+  *e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                     kXThreads, 0);
+  if (*e != cudaSuccess) return 0;
+  if (per_sm < 1) per_sm = 1;
+  const long long fill = (long long)per_sm * sms;
+  return rounds < fill ? rounds : fill;
 }
 
 }  // namespace
@@ -372,43 +532,77 @@ extern "C" int octree_occ_u8_launch(const void* codes, long long n, int depth,
 }
 
 // The counting pass of `levels` levels at once (levels = depth with
-// counts, 1 for a whole array); scratch: levels * (2 * tiles + 2) long
-// longs.
+// counts, 1 for a whole array): scratch as x_scratch lays it out
+// (rounds: nrows / 256 rounded up), tot (levels,) the children of each
+// level.
 extern "C" int octree_expand_count_launch(const void* occ, long long cap,
                                           const void* counts, int levels,
                                           long long nrows, void* scratch,
-                                          void* stream) {
-  if (nrows <= 0 || cap <= 0 || levels < 1 || levels > 65535)
+                                          void* tot, void* stream) {
+  if (nrows <= 0 || nrows >= (1LL << 31) || cap <= 0 || levels < 1 ||
+      levels > kMaxDepth)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const long long tiles = (nrows + kTile - 1) / kTile;
-  long long* sc = (long long*)scratch;
-  ExpandScratch s{(unsigned*)sc, sc + levels, sc + levels + levels * tiles,
-                  sc + levels + 2 * levels * tiles};
-  cudaError_t e = cudaMemsetAsync(sc, 0, levels * sizeof(long long), st);
+  const long long rounds = rounds_of(nrows);
+  const XScratch x = x_scratch(scratch, tot, levels, rounds);
+  cudaError_t e = cudaMemsetAsync(x.tickets, 0, levels * sizeof(long long),
+                                  st);
   if (e != cudaSuccess) return (int)e;
-  OccLevel src{(const unsigned char*)occ, cap, (const int*)counts, nrows};
-  octree_expand_count_kernel<<<dim3((unsigned)tiles, (unsigned)levels),
-                               kThreads, 0, st>>>(src, s, tiles);
+  const XStream s{(const unsigned char*)occ, cap, (const int*)counts, nrows,
+                  levels};
+  // a CTA a counting tile of a level's rows: as many as the bytes hold
+  // when the counts fit them (the grid strides otherwise)
+  const long long tiles = (nrows + kXTile - 1) / kXTile;
+  const long long need = (cap + kXTile - 1) / kXTile + levels;
+  const long long grid = need < levels * tiles ? need : levels * tiles;
+  octree_expand_count_kernel<<<(unsigned)grid, kXThreads, 0, st>>>(s, x,
+                                                                   rounds);
   return (int)cudaGetLastError();
 }
 
-extern "C" int octree_expand_level_launch(const void* occ, long long cap,
-                                          const void* counts, int levels,
-                                          int l, long long nrows,
-                                          void* scratch, const void* nodes,
-                                          void* out, void* src_row,
-                                          void* new_cnt, void* stream) {
-  if (nrows <= 0 || cap <= 0 || l < 0 || l >= levels)
+// Level l after the counting pass: prev the level above's codes (null at
+// the root), prev_rows its valid rows (-1: its child count, clamped to
+// nrows); out (nrows,) the children, src (nrows,) their parent rows or
+// null; final != 0 pads out (and src) past the level's child count.
+extern "C" int octree_expand_level_launch(
+    const void* occ, long long cap, const void* counts, int levels, int l,
+    long long nrows, void* scratch, void* tot, const void* prev,
+    long long prev_rows, void* out, void* src, int final, void* stream) {
+  if (nrows <= 0 || nrows >= (1LL << 31) || cap <= 0 || l < 0 ||
+      l >= levels || levels > kMaxDepth || (prev_rows < 0 && l == 0))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const long long tiles = (nrows + kTile - 1) / kTile;
-  long long* sc = (long long*)scratch;
-  ExpandScratch s{(unsigned*)sc, sc + levels, sc + levels + levels * tiles,
-                  sc + levels + 2 * levels * tiles};
-  OccLevel src{(const unsigned char*)occ, cap, (const int*)counts, nrows};
-  octree_expand_level_kernel<<<(unsigned)tiles, kThreads, 0, st>>>(
-      src, s, tiles, l, (const long long*)nodes, (long long*)out,
-      (long long*)src_row, (long long*)new_cnt);
+  const long long rounds = rounds_of(nrows);
+  const XStream s{(const unsigned char*)occ, cap, (const int*)counts, nrows,
+                  levels};
+  const XScratch x = x_scratch(scratch, tot, levels, rounds);
+  cudaError_t e = cudaSuccess;
+  const long long grid =
+      src ? resident_grid(octree_expand_level_kernel<true>, rounds, &e)
+          : resident_grid(octree_expand_level_kernel<false>, rounds, &e);
+  if (e != cudaSuccess) return (int)e;
+  if (src)
+    octree_expand_level_kernel<true><<<(unsigned)grid, kXThreads, 0,
+                                       (cudaStream_t)stream>>>(
+        s, x, rounds, l, (const long long*)prev, prev_rows, (long long*)out,
+        (long long*)src, final);
+  else
+    octree_expand_level_kernel<false><<<(unsigned)grid, kXThreads, 0,
+                                        (cudaStream_t)stream>>>(
+        s, x, rounds, l, (const long long*)prev, prev_rows, (long long*)out,
+        nullptr, final);
+  return (int)cudaGetLastError();
+}
+
+// The chain probe: one empty launch on the level launches' grid for nrows
+// rows.
+extern "C" int octree_expand_chain_probe_launch(long long nrows,
+                                                void* stream) {
+  if (nrows <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSuccess;
+  const long long grid = resident_grid(octree_expand_level_kernel<false>,
+                                       rounds_of(nrows), &e);
+  if (e != cudaSuccess) return (int)e;
+  octree_expand_chain_probe_kernel<<<(unsigned)grid, kXThreads, 0,
+                                     (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

@@ -165,17 +165,23 @@ def _open(so: Path):
     lib.octree_occ_u8_launch.argtypes = [vp, i64, i32, i64, vp, i64, vp, vp]
     lib.octree_occ_u8_launch.restype = i32
     lib.octree_expand_count_launch.argtypes = [vp, i64, vp, i32, i64, vp,
-                                               vp]
+                                               vp, vp]
     lib.octree_expand_count_launch.restype = i32
     lib.octree_expand_level_launch.argtypes = [vp, i64, vp, i32, i32, i64,
-                                               vp, vp, vp, vp, vp, vp]
+                                               vp, vp, vp, i64, vp, vp, i32,
+                                               vp]
     lib.octree_expand_level_launch.restype = i32
+    lib.octree_expand_chain_probe_launch.argtypes = [i64, vp]
+    lib.octree_expand_chain_probe_launch.restype = i32
     pp = ctypes.POINTER(ctypes.c_void_p)
     lib.raht_fp_truth_level_launch.argtypes = [pp, i64, i32, vp, i32, vp, vp,
                                                vp, vp, vp]
     lib.raht_fp_truth_level_launch.restype = i32
     lib.raht_fp_group_launch.argtypes = [
         pp, i64, i32, i32, vp, vp, vp, vp, pp, vp, pp, vp, vp, vp, vp,
-        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_uint8), vp]
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_uint8), vp,
+        vp]
     lib.raht_fp_group_launch.restype = i32
+    lib.raht_fp_group_smem_bytes.argtypes = [i32]
+    lib.raht_fp_group_smem_bytes.restype = i32
     return lib

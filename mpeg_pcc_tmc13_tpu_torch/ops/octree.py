@@ -721,32 +721,40 @@ def decode_expand_stream_ref(occ_u8: torch.Tensor, counts: torch.Tensor,
     return nodes, cnt
 
 
+# rows a round of the expansion, one a lane (csrc/octree_levels.cu:
+# kXThreads), and the rounds a CTA of the counting launch counts
+# (kXRounds)
+EXPAND_ROUND = 256
+EXPAND_COUNT_ROUNDS = 8
+
+
 def _expand_scratch(levels: int, nrows: int, device) -> torch.Tensor:
-    tiles = -(-nrows // KERNEL_TILE)
-    return torch.empty(levels * (2 * tiles + 2), dtype=torch.int64,
-                       device=device)
+    rounds = -(-nrows // EXPAND_ROUND)
+    tiles = -(-rounds // EXPAND_COUNT_ROUNDS)
+    return torch.empty(3 * levels + levels * (rounds + 2 * tiles),
+                       dtype=torch.int64, device=device)
 
 
-def _expand_launch(lib, occ, counts, levels, nrows, scratch, stream):
+def _expand_launch(lib, occ, counts, levels, nrows, scratch, tot, stream):
     """The counting pass of ``levels`` levels (all of a stream's levels at
     once when ``counts`` is given, else the one level of ``occ``)."""
     rc = lib.octree_expand_count_launch(
         occ.data_ptr(), occ.numel(),
         counts.data_ptr() if counts is not None else None, levels, nrows,
-        scratch.data_ptr(), stream)
+        scratch.data_ptr(), tot.data_ptr(), stream)
     _launched("octree_expand (count)", rc)
     _count("octree_expand")
 
 
-def _expand_level_launch(lib, occ, counts, levels, l, nrows, scratch,
-                         nodes, out, src, new_cnt, stream):
+def _expand_level_launch(lib, occ, counts, levels, l, nrows, scratch, tot,
+                         prev, prev_rows, out, src, final, stream):
     rc = lib.octree_expand_level_launch(
         occ.data_ptr(), occ.numel(),
         counts.data_ptr() if counts is not None else None, levels, l,
-        nrows, scratch.data_ptr(),
-        nodes.data_ptr() if nodes is not None else None, out.data_ptr(),
-        src.data_ptr() if src is not None else None, new_cnt.data_ptr(),
-        stream)
+        nrows, scratch.data_ptr(), tot.data_ptr(),
+        prev.data_ptr() if prev is not None else None, prev_rows,
+        out.data_ptr(), src.data_ptr() if src is not None else None,
+        int(final), stream)
     _launched("octree_expand", rc)
     _count("octree_expand")
 
@@ -761,9 +769,9 @@ def _expand_level(nodes: torch.Tensor, occ: torch.Tensor, nmax: int,
     (nmax,) int64 padded with INT64_MAX, child count as a 0-d int64
     tensor, source row of each child slot (nmax,) int64, nmax - 1 on
     padding rows).  A CUDA tensor launches ``octree_expand`` (its
-    counting pass, then the level) or raises; a CPU tensor runs
-    ``_expand_level_ref`` (which reads ``nth_bit`` and ``popcnt``; the
-    kernel needs no tables).
+    counting pass, then the level with its padding) or raises; a CPU
+    tensor runs ``_expand_level_ref`` (which reads ``nth_bit`` and
+    ``popcnt``; the kernel needs no tables).
     """
     if not _kernels.on_card(nodes):
         return _expand_level_ref(nodes, occ, nmax, nth_bit, popcnt)
@@ -779,15 +787,15 @@ def _expand_level(nodes: torch.Tensor, occ: torch.Tensor, nmax: int,
     nodes, occ = nodes.contiguous(), occ.contiguous()
     out = torch.empty(nmax, dtype=torch.int64, device=dev)
     src = torch.empty(nmax, dtype=torch.int64, device=dev)
-    cnt = torch.empty((), dtype=torch.int64, device=dev)
+    tot = torch.empty(1, dtype=torch.int64, device=dev)
     scratch = _expand_scratch(1, nmax, dev)
     lib = _kernels.load()
     stream = _kernels.stream(nodes)
     with torch.cuda.device(dev):
-        _expand_launch(lib, occ, None, 1, nmax, scratch, stream)
-        _expand_level_launch(lib, occ, None, 1, 0, nmax, scratch, nodes,
-                             out, src, cnt, stream)
-    return out, cnt, src
+        _expand_launch(lib, occ, None, 1, nmax, scratch, tot, stream)
+        _expand_level_launch(lib, occ, None, 1, 0, nmax, scratch, tot,
+                             nodes, nmax, out, src, True, stream)
+    return out, tot[0], src
 
 
 def decode_expand_stream(occ_u8: torch.Tensor, counts: torch.Tensor,
@@ -802,11 +810,12 @@ def decode_expand_stream(occ_u8: torch.Tensor, counts: torch.Tensor,
     (codes (nmax,) int64 padded with INT64_MAX, leaf count as a 0-d
     tensor).
 
-    A CUDA tensor launches ``octree_expand``: one counting pass over
-    every level's bytes, then one launch a level, each reading its bytes
-    straight from ``occ_u8`` at the level's offset (no copy per level),
-    the first from the root (code 0); or raises.  A CPU tensor runs
-    ``decode_expand_stream_ref``.
+    A CUDA tensor launches ``octree_expand`` or raises: a counting launch
+    over every level's bytes, then a launch a level, each reading its
+    bytes straight from ``occ_u8`` at the level's offset, the first from
+    the root (code 0), the intermediate levels into two ping-pong buffers
+    (the returned one and one more) with no padding, the last padding its
+    buffer.  A CPU tensor runs ``decode_expand_stream_ref``.
     """
     if not _kernels.on_card(occ_u8):
         return decode_expand_stream_ref(occ_u8, counts, depth, nmax)
@@ -825,61 +834,154 @@ def decode_expand_stream(occ_u8: torch.Tensor, counts: torch.Tensor,
         counts = counts.to(torch.int32)
     occ_u8, counts = occ_u8.contiguous(), counts.contiguous()
     scratch = _expand_scratch(depth, nmax, dev)
-    cnts = torch.empty(depth, dtype=torch.int64, device=dev)
+    tot = torch.empty(depth, dtype=torch.int64, device=dev)
+    out = torch.empty(nmax, dtype=torch.int64, device=dev)
+    tmp = torch.empty(nmax, dtype=torch.int64, device=dev) \
+        if depth > 1 else None
     lib = _kernels.load()
     stream = _kernels.stream(occ_u8)
-    nodes = None
     with torch.cuda.device(dev):
-        _expand_launch(lib, occ_u8, counts, depth, nmax, scratch, stream)
+        _expand_launch(lib, occ_u8, counts, depth, nmax, scratch, tot,
+                       stream)
         for l in range(depth):
-            out = torch.empty(nmax, dtype=torch.int64, device=dev)
+            # level l writes `out` when depth - 1 - l is even: the last
+            # level does, and each reads the other buffer
+            dst, prev = (out, tmp) if (depth - 1 - l) % 2 == 0 else \
+                (tmp, out)
             _expand_level_launch(lib, occ_u8, counts, depth, l, nmax,
-                                 scratch, nodes, out, None, cnts[l:l + 1],
-                                 stream)
-            nodes = out
-    return nodes, cnts[depth - 1]
+                                 scratch, tot, prev if l else None,
+                                 -1 if l else 0, dst, None,
+                                 l == depth - 1, stream)
+    return out, tot[depth - 1]
+
+
+def expand_chain_probe(nrows: int, device) -> None:
+    """One link of the expansion's level chain, alone: an empty kernel on
+    the level launches' grid for ``nrows`` rows (time it captured in a
+    CUDA graph).  Counts nothing: a probe, not a launch of the main
+    path."""
+    lib = _kernels.load()
+    with torch.cuda.device(device):
+        rc = lib.octree_expand_chain_probe_launch(
+            nrows, torch.cuda.current_stream(device).cuda_stream)
+    _launched("octree_expand chain probe", rc)
+
+
+def _expand_rows_mirror(b, nodes, r0, start, nmax, out, src):
+    """One round of the kernel: rows r0.. with bytes b and parent codes
+    nodes, one a lane; the block scan of their popcounts places each
+    node's children (lowest set bit first) in the round's run, stored
+    from slot ``start`` on, slots >= nmax dropped.  Returns the next
+    round's first slot."""
+    pops = _popcount8_table(b.device)[b]
+    e = torch.cumsum(pops, 0) - pops
+    run = int(pops.sum())
+    codes = torch.empty(run, dtype=torch.int64)
+    rows = torch.empty(run, dtype=torch.int64)
+    left = b.clone()
+    up = torch.bitwise_left_shift(nodes, 3)
+    r = r0 + torch.arange(b.numel(), dtype=torch.int64)
+    for k in range(8):                   # the k-th set bit of each node
+        has = pops > k
+        low = left & -left
+        codes[e[has] + k] = up[has] | _msb_mirror(low)[has]
+        rows[e[has] + k] = r[has]
+        left = left & (left - 1)
+    slots = start + torch.arange(run, dtype=torch.int64)
+    keep = slots < nmax
+    out[slots[keep]] = codes[keep]
+    if src is not None:
+        src[slots[keep]] = rows[keep]
+    return start + run
+
+
+def _expand_rounds_mirror(occ_rows, node_of, nmax, out, src, threads):
+    """One level over its rows' bytes ``occ_rows`` (int64): the counting
+    launch (per tile of ``EXPAND_COUNT_ROUNDS`` rounds of ``threads``
+    rows each round's children, their exclusive prefix within the tile,
+    the tile's sum; its last CTA's exclusive scan of the tiles), then
+    each round (``node_of(r)``: the parent codes of rows r) from its
+    tile's prefix plus its own.  Returns the level's child count (not
+    clamped)."""
+    rows = occ_rows.numel()
+    pops = _popcount8_table(occ_rows.device)[occ_rows]
+    starts = list(range(0, rows, threads))
+    sums = torch.stack([pops[r0:r0 + threads].sum() for r0 in starts]) \
+        if starts else torch.zeros(0, dtype=torch.int64)
+    k = EXPAND_COUNT_ROUNDS
+    pre = torch.cat([torch.cumsum(sums[t:t + k], 0) - sums[t:t + k]
+                     for t in range(0, sums.numel(), k)]) \
+        if starts else sums
+    tile_sum = torch.stack([sums[t:t + k].sum()
+                            for t in range(0, sums.numel(), k)]) \
+        if starts else sums
+    tile_excl = torch.cumsum(tile_sum, 0) - tile_sum
+    for i, r0 in enumerate(starts):
+        r = torch.arange(r0, min(r0 + threads, rows), dtype=torch.int64)
+        _expand_rows_mirror(occ_rows[r], node_of(r), r0,
+                            int(tile_excl[i // k] + pre[i]), nmax, out, src)
+    return int(sums.sum())
+
+
+def _pad_mirror(out, src, total, nmax):
+    out[total:] = I64_MAX
+    if src is not None:
+        src[total:] = nmax - 1
+
+
+# what an output row holds before a kernel writes it (torch.empty): a
+# value no code takes, so a mirror that read it would show
+_UNWRITTEN = -0x5A5A5A5A5A5A5A5B
 
 
 def expand_level_mirror(nodes: torch.Tensor, occ: torch.Tensor, nmax: int,
-                        tile: int = KERNEL_TILE, per_thread: int = 16):
-    """``octree_expand``'s algorithm for one level in plain torch: the
-    children of each tile (the counting pass) and the tiles' exclusive
-    prefixes (its last CTA's scan); within a tile, each thread's rows'
-    exclusive prefix plus the exclusive scan of the threads' sums; each
-    node then writes its r-th set bit's child at start + r (walking its
-    bits lowest first) and each tile the padding rows of its own range.
+                        threads: int = EXPAND_ROUND):
+    """``octree_expand``'s algorithm for one level (``_expand_level``'s
+    form) in plain torch: the children of each round of ``threads`` rows
+    and their prefixes, then each round (lane i takes row base + i), its
+    children stored contiguously from its prefix, then the final padding.
     Same outputs as ``_expand_level_ref``."""
     occ64 = occ.to(torch.int64) & 0xFF
-    bits = (occ64[:, None] >> torch.arange(8)) & 1
-    pops = bits.sum(dim=1)
-    tiles = -(-nmax // tile)
-    padded = torch.zeros(tiles * tile, dtype=torch.int64)
-    padded[:nmax] = pops
-    per_tile = padded.view(tiles, tile)
-    tile_sum = per_tile.sum(dim=1)
-    tile_excl = torch.cumsum(tile_sum, 0) - tile_sum
-    total = int(tile_sum.sum())
-    thread = per_tile.view(tiles, -1, per_thread)
-    thread_sum = thread.sum(dim=2)
-    thread_excl = torch.cumsum(thread_sum, 1) - thread_sum
-    row_excl = torch.cumsum(thread, 2) - thread
-    starts = (tile_excl[:, None, None] + thread_excl[:, :, None]
-              + row_excl).reshape(-1)[:nmax]
-    out = torch.empty(nmax, dtype=torch.int64)
-    src = torch.empty(nmax, dtype=torch.int64)
-    rows = torch.arange(nmax, dtype=torch.int64)
-    b = occ64.clone()
-    for r in range(8):                   # the r-th set bit of each node
-        has = pops > r
-        low = b & -b                     # lowest set bit left
-        bit = _msb_mirror(low)
-        b = b & (b - 1)
-        dst = starts + r
-        put = has & (dst < nmax)
-        up = torch.bitwise_left_shift(nodes[put], 3)
-        out[dst[put]] = up | bit[put]
-        src[dst[put]] = rows[put]
-    pad = rows >= total
-    out[pad] = I64_MAX
-    src[pad] = nmax - 1
+    out = torch.full((nmax,), _UNWRITTEN, dtype=torch.int64)
+    src = torch.full((nmax,), _UNWRITTEN, dtype=torch.int64)
+    total = _expand_rounds_mirror(occ64, lambda r: nodes[r], nmax, out, src,
+                                  threads)
+    _pad_mirror(out, src, total, nmax)
     return out, torch.tensor(total, dtype=torch.int64), src
+
+
+def expand_stream_mirror(occ_u8: torch.Tensor, counts: torch.Tensor,
+                         depth: int, nmax: int, threads: int = EXPAND_ROUND):
+    """``decode_expand_stream``'s kernels in plain torch: each level's
+    span (offset, rows = min(count, nmax)) of the stream, its rounds as
+    ``expand_level_mirror``'s, level l writing one of two
+    ping-pong buffers (the returned one when depth - 1 - l is even) and
+    reading the other, rows past the level above's child count INT64_MAX
+    (the root: row 0 code 0), no padding but the last level's.  The
+    buffers start unwritten (``_UNWRITTEN``), so a read of a row no level
+    wrote would show.  Same outputs as ``decode_expand_stream_ref``."""
+    cap = occ_u8.shape[0]
+    counts = [int(c) for c in counts]
+    out = torch.full((nmax,), _UNWRITTEN, dtype=torch.int64)
+    tmp = torch.full((nmax,), _UNWRITTEN, dtype=torch.int64)
+    off, prev, prev_rows, total = 0, None, 0, 1
+    for l in range(depth):
+        rows = max(0, min(counts[l], nmax))
+        idx = (off + torch.arange(rows, dtype=torch.int64)).clamp(max=cap - 1)
+        dst = out if (depth - 1 - l) % 2 == 0 else tmp
+
+        def node_of(r, prev=prev, prev_rows=prev_rows):
+            if prev is None:
+                return torch.where(r == 0, 0, I64_MAX)
+            return torch.where(r < prev_rows, prev[r.clamp(max=nmax - 1)],
+                               I64_MAX)
+        total = _expand_rounds_mirror(occ_u8[idx].to(torch.int64), node_of,
+                                      nmax, dst, None, threads)
+        off += counts[l]
+        prev, prev_rows = dst, min(total, nmax)
+    if depth == 0:
+        out[:] = I64_MAX
+        out[0] = 0
+        return out, torch.tensor(1, dtype=torch.int64)
+    _pad_mirror(out, None, total, nmax)
+    return out, torch.tensor(total, dtype=torch.int64)

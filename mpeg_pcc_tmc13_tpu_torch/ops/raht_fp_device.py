@@ -636,6 +636,12 @@ MODE_ROOT = 2         # the parents are the roots: (de)quantise them first
 MODE_FINAL = 4        # write (v + HALF) >> F
 MODE_HAVE_GRAND = 8   # gate the prediction on the grandparent counts
 MODE_Q32 = 16         # q rows out as int32 (else int64)
+# the group kernel's tile of parent blocks and its channel window
+# (csrc/raht_fp_loop.cu: kGT, kGMaxW), and the bound of its fast
+# division's numerators and divisors (kFastLim)
+GROUP_TILE = 32
+GROUP_WINDOW = 4
+FAST_DIV_LIMIT = 1 << 51
 # bit o of entry j: neighbour offset j touches octant o
 NBR_OCTANTS = tuple(int(sum(1 << o for o in range(8) if _TOUCH_TABLE[o, j]))
                     for j in range(_TOUCH_TABLE.shape[1]))
@@ -660,6 +666,9 @@ def row_offsets(p):
     return tuple(out)
 
 
+PLAN_NAMES = BUTTERFLY_KEYS + ("off_z", "off_y", "off_x") + PREDICTION_KEYS
+
+
 def kernel_plan(p, offsets):
     """The 22 tensors a kernel reads, in the launcher's pointer order."""
     return ([p[k] for k in BUTTERFLY_KEYS] + list(offsets)
@@ -671,6 +680,14 @@ def _plan_ptrs(p, offsets):
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("a plan tensor is not contiguous")
     return _ptrs(ts)
+
+
+def _staged_plan_ptrs(p, offsets):
+    """``_plan_ptrs`` for the group kernel, which stages each plan tensor
+    with 16-byte copies: a tensor not on 16 bytes is copied (the copy
+    lives on the launch's stream, so freeing it after the launch is
+    safe)."""
+    return _ptrs([_aligned(t) for t in kernel_plan(p, offsets)])
 
 
 def _cuda_truth(p, offsets, mp, vals, shift, dc, z, y, x):
@@ -692,7 +709,7 @@ def _cuda_truth(p, offsets, mp, vals, shift, dc, z, y, x):
 
 def _cuda_group(p, offsets, mp, mode, recon_p, pf_p, grand_p, steps,
                 rows_in, q_root_in, q_out, q_root_out, recon_c, pf_c, cnt_c,
-                t0, weights):
+                t0, weights, stats=None):
     """Launch ``raht_fp_group`` over the ``mp`` parent blocks of plan
     ``p``: see ``group_mirror`` for each argument."""
     dev = recon_c.device
@@ -701,11 +718,11 @@ def _cuda_group(p, offsets, mp, mode, recon_p, pf_p, grand_p, steps,
     octs = (ctypes.c_uint8 * len(NBR_OCTANTS))(*NBR_OCTANTS)
     with torch.cuda.device(dev):
         rc = lib.raht_fp_group_launch(
-            _plan_ptrs(p, offsets), mp, steps.shape[0], mode, _ptr(recon_p),
-            _ptr(pf_p), _ptr(grand_p), steps.data_ptr(), _ptrs(rows_in),
-            _ptr(q_root_in), _ptrs(q_out), _ptr(q_root_out),
+            _staged_plan_ptrs(p, offsets), mp, steps.shape[0], mode,
+            _ptr(recon_p), _ptr(pf_p), _ptr(grand_p), steps.data_ptr(),
+            _ptrs(rows_in), _ptr(q_root_in), _ptrs(q_out), _ptr(q_root_out),
             recon_c.data_ptr(), _ptr(pf_c), cnt_c.data_ptr(), ints, octs,
-            _kernels.stream(recon_c))
+            _ptr(stats), _kernels.stream(recon_c))
     if rc != 0:
         raise RuntimeError(f"raht_fp_group launch failed: CUDA error {rc}")
     with _COUNT_LOCK:
@@ -797,9 +814,43 @@ def floordiv_mirror(a, b):
     return q - ((r != 0) & ((r < 0) != (b < 0))).to(_I64)
 
 
-def _quant_mirror(res, st):
+def fast_rcp_mirror(d):
+    """The group kernel's ``fast_rcp``: float64 1 / d (IEEE, correctly
+    rounded) where 1 <= d <= ``FAST_DIV_LIMIT``, else 0 (the general
+    path)."""
+    ok = (d >= 1) & (d <= FAST_DIV_LIMIT)
+    return torch.where(ok, 1.0 / torch.where(ok, d, 1).to(torch.float64),
+                       0.0)
+
+
+def fdiv_mirror(a, d, r, count=None, use=None):
+    """The group kernel's ``fdiv``: floor(a / d) for d >= 1 with r =
+    ``fast_rcp_mirror(d)``.  Fast path where r != 0 and |a| <= 2^51: the
+    float64 product a * r (round to nearest), floored, then one step
+    against the remainder a - q d; elsewhere ``floordiv_mirror`` on int64
+    (the general path).  ``count``: a (2,) int64 tensor that the fast and
+    general divisions among ``use`` (default: all) are added to."""
+    a, d, r = torch.broadcast_tensors(a, d, r)
+    fast = (r != 0) & (a >= -FAST_DIV_LIMIT) & (a <= FAST_DIV_LIMIT)
+    af = torch.where(fast, a, 0)
+    df = torch.where(fast, d, 1)
+    q = torch.floor(af.to(torch.float64) * r).to(_I64)
+    rem = af - q * df
+    q = q - (rem < 0).to(_I64) + (rem >= df).to(_I64)
+    gen = floordiv_mirror(torch.where(fast, 0, a), torch.where(fast, 1, d))
+    if count is not None:
+        use = torch.ones_like(fast) if use is None else use
+        count[0] += (fast & use).sum()
+        count[1] += (~fast & use).sum()
+    return torch.where(fast, q, gen)
+
+
+def quant_f_mirror(res, st, d3, r3, count=None, use=None):
+    """The group kernel's ``quant_f``: ``_quant`` of res (n, W) with the
+    channels' steps st, 3 st and ``fast_rcp_mirror(3 st)`` through
+    ``fdiv_mirror``."""
     a = res.abs()
-    q = floordiv_mirror(24 * a + st, 3 * st)
+    q = fdiv_mirror(24 * a + st, d3, r3, count, use)
     return torch.where(res < 0, -q, q)
 
 
@@ -891,77 +942,135 @@ def truth_level_mirror(p, offsets, mp, vals, shift, dc, z, y, x):
 
 def group_mirror(p, offsets, mp, mode, recon_p, pf_p, grand_p, steps,
                  rows_in, q_root_in, q_out, q_root_out, recon_c, pf_c, cnt_c,
-                 t0, weights):
+                 t0, weights, stats=None, tile=GROUP_TILE):
     """``raht_fp_group`` in plain torch, in place, with the launcher's
-    signature.  offsets: the plan's ``row_offsets``; recon_p (mp, C):
-    the parents' reconstruction (at the root: the roots' DC truth when
-    encoding, None when decoding); pf_p: the
-    parents' Q13 means or None (computed per read); grand_p (mp,) or
-    None; rows_in: z, y, x truth rows (encode) or q rows (decode);
-    q_root_in: the roots' q rows (decoding at the root); q_out, q_root_out:
-    where encoding writes q rows; recon_c, pf_c (or None), cnt_c: the
-    children's reconstruction, Q13 means and next grandparent counts."""
+    signature and the kernel's algorithm (``tile``: parent blocks a
+    tile, the kernel's unless a test asks for another).  offsets: the plan's
+    ``row_offsets``; recon_p (mp, C): the parents' reconstruction (at the
+    root: the roots' DC truth when encoding, None when decoding); pf_p:
+    the parents' Q13 means or None (computed as they are gathered);
+    grand_p (mp,) or None; rows_in: z, y, x truth rows (encode) or q rows
+    (decode); q_root_in: the roots' q rows (decoding at the root); q_out,
+    q_root_out: where encoding writes q rows; recon_c, pf_c (or None),
+    cnt_c: the children's reconstruction, Q13 means and next grandparent
+    counts; stats: None or a (2,) int64 tensor that the fast and the
+    general divisions are added to, as the kernel counts them.
+
+    The kernel's steps, tile by tile of parent blocks: the tile's rows
+    of every plan tensor but ``sw_c`` and ``sw_p`` (the staged tile); the
+    means of the 18 neighbour rows the planner marks and the block's own,
+    ``GROUP_WINDOW`` channels at a time, and each child's ``sw_c`` (the
+    gather); per block the keep mask from channel 0 and the enable bit,
+    per child 1 / sw_c (the prologue); per (block, channel) the weight
+    sums and the prediction, its forward network, the q rows, the
+    inverse network and the children's rows.  Every
+    division goes through ``fdiv_mirror``."""
     w_self, w_face, w_edge = weights
     decode, root = mode & MODE_DECODE, mode & MODE_ROOT
-    cf = _coef_mirror(p)
-    rows = _pair_rows_mirror(offsets, cf[2])
-    st = steps[None, :]
-    every = torch.arange(mp, dtype=_I64, device=steps.device)
-
-    def parent_recon(r):
-        if not root:
-            return recon_p[r]
-        if decode:
-            return _dequant(q_root_in[r], steps)
-        return _dequant(_quant_mirror(recon_p[r], st), steps)
-
-    def parent_mean(r):
-        if pf_p is not None:
-            return pf_p[r]
-        return floordiv_mirror(parent_recon(r) << QA, p["sw_p"][r][:, None])
-
-    mean = parent_mean(every)                               # (mp, C)
-    nmean = parent_mean(p["nbr_idx"].reshape(-1)).reshape(mp, 18, -1)
-    pv = mean[:, 0, None]
-    nl = 10 * nmean[..., 0]
-    keep = p["nbr_ok"] & (nl > 2 * pv) & (nl < 25 * pv)
-    wj = torch.tensor([w_face] * 6 + [w_edge] * 12, dtype=_I64,
-                      device=steps.device)
-    kw = torch.where(keep, wj, 0)                           # (mp, 18)
+    dev = steps.device
+    nc = steps.shape[0]
+    win = min(nc, GROUP_WINDOW)
+    count = torch.zeros(2, dtype=_I64, device=dev)
+    plan = dict(zip(PLAN_NAMES, kernel_plan(p, offsets)))
     touch = torch.tensor([[(m >> o) & 1 for o in range(8)]
-                          for m in NBR_OCTANTS], dtype=_I64,
-                         device=steps.device)              # (18, 8)
-    wsum = w_self + (kw[:, :, None] * touch).sum(1)         # (mp, 8)
-    s = ((nmean * kw[..., None])[:, :, None, :]
-         * touch[None, :, :, None]).sum(1)                  # (mp, 8, C)
-    en = p["en_base"]
-    if mode & MODE_HAVE_GRAND:
-        en = en & (grand_p >= t0)
-    g = p["blk_gather"]
-    child = g >= 0
-    pm = floordiv_mirror(mean[:, None, :] * w_self + s, wsum[..., None])
-    pred = (pm * p["sw_c"][g.clamp(min=0)][..., None] + QAH) >> QA
-    pred = torch.where((child & en[:, None])[..., None], pred, 0)
-    _, pac = _forward_mirror(cf, pred)
-    rec = torch.zeros_like(pac)
-    for k in range(7):
-        stage = 0 if k < 4 else (1 if k < 6 else 2)
-        sel = cf[2][:, k]
-        r = rows[sel, k]
+                          for m in NBR_OCTANTS], dtype=torch.bool,
+                         device=dev)                        # (18, 8)
+    wj = torch.tensor([w_face] * 6 + [w_edge] * 12, dtype=_I64, device=dev)
+    d3 = 3 * steps
+    r3 = fast_rcp_mirror(d3)
+
+    def parent_recon(r, cs, use):
+        st, d, rc = steps[cs], d3[cs], r3[cs]
+        if not root:
+            return recon_p[r][:, cs]
         if decode:
-            q = rows_in[stage][r]
-        else:
-            q = _quant_mirror(rows_in[stage][r] - pac[sel, k], st)
-            q_out[stage][r] = q.to(q_out[stage].dtype)
-        rec[sel, k] = pac[sel, k] + _dequant(q, steps)
-    if root and not decode:
-        q_root_out.copy_(_quant_mirror(recon_p, st).to(q_root_out.dtype))
-    v8 = _inverse_mirror(cf, parent_recon(every), rec)
-    val, dst = v8[child], g[child]
-    recon_c[dst] = ((val + HALF) >> F) if mode & MODE_FINAL else val
-    if pf_c is not None:
-        pf_c[dst] = floordiv_mirror(val << QA, p["sw_c"][dst][:, None])
-    cnt_c[dst] = p["cnt_p"][:, None].expand(-1, 8)[child]
+            return _dequant(q_root_in[r][:, cs], st)
+        q = quant_f_mirror(recon_p[r][:, cs], st, d, rc, count, use)
+        return _dequant(q, st)
+
+    for b0 in range(0, mp, tile):
+        rows = min(tile, mp - b0)
+        t = {k: v[b0:b0 + rows] for k, v in plan.items()
+             if k not in ("sw_c", "sw_p")}
+        blk = torch.arange(b0, b0 + rows, dtype=_I64, device=dev)
+        ridx = torch.cat([t["nbr_idx"], blk[:, None]], 1)   # (rows, 19)
+        rok = torch.cat([t["nbr_ok"],
+                         torch.ones(rows, 1, dtype=torch.bool, device=dev)],
+                        1)
+        g = t["blk_gather"]
+        child = g >= 0
+        swc = torch.where(child, p["sw_c"][g.clamp(min=0)], 1)
+        keep = en = wsum = rw = rs = None
+        for c0 in range(0, nc, win):
+            cs = list(range(c0, min(c0 + win, nc)))
+            cols = torch.tensor(cs, dtype=_I64, device=dev)
+            # the gather: (rows, 19, W) means of the marked rows
+            r = ridx[rok]
+            use = torch.ones(r.numel(), len(cs), dtype=torch.bool,
+                             device=dev)
+            if pf_p is not None:
+                got = pf_p[r][:, cs]
+            else:
+                sw = p["sw_p"][r][:, None]
+                got = fdiv_mirror(parent_recon(r, cs, use) << QA, sw,
+                                  fast_rcp_mirror(sw), count, use)
+            nmean = torch.zeros(rows, 19, len(cs), dtype=_I64, device=dev)
+            nmean[rok] = got
+            if c0 == 0:                  # the prologue, one a block
+                pv = nmean[:, 18, 0, None]
+                nl = 10 * nmean[:, :18, 0]
+                keep = t["nbr_ok"] & (nl > 2 * pv) & (nl < 25 * pv)
+                kw = torch.where(keep, wj, 0)               # (rows, 18)
+                wsum = w_self + (kw[:, :, None] * touch).sum(1)   # (rows, 8)
+                en = t["en_base"]
+                if mode & MODE_HAVE_GRAND:
+                    en = en & (grand_p[b0:b0 + rows] >= t0)
+                rw = fast_rcp_mirror(wsum)
+                rs = fast_rcp_mirror(swc)
+            # per (block, channel): the prediction
+            kw = torch.where(keep, wj, 0)[..., None]        # (rows, 18, 1)
+            s = ((nmean[:, :18] * kw)[:, :, None, :]
+                 * touch[None, :, :, None]).sum(1)          # (rows, 8, W)
+            self_ = nmean[:, 18, None, :] * w_self
+            use = (child & en[:, None])[..., None].expand(-1, -1, len(cs))
+            pm = fdiv_mirror(self_ + s, wsum[..., None], rw[..., None],
+                             count, use)
+            pred = torch.where(use, (pm * swc[..., None] + QAH) >> QA, 0)
+            cf = _coef_mirror(t)
+            rows_k = _pair_rows_mirror((t["off_z"], t["off_y"], t["off_x"]),
+                                       cf[2])
+            _, pac = _forward_mirror(cf, pred)
+            st, d, rc = steps[cs], d3[cs], r3[cs]
+            rec = torch.zeros_like(pac)
+            for k in range(7):
+                stage = 0 if k < 4 else (1 if k < 6 else 2)
+                sel = cf[2][:, k]
+                rr = rows_k[sel, k]
+                if decode:
+                    q = rows_in[stage][rr][:, cs]
+                else:
+                    q = quant_f_mirror(rows_in[stage][rr][:, cs] - pac[sel, k],
+                                       st, d, rc, count)
+                    q_out[stage][rr[:, None], cols] = \
+                        q.to(q_out[stage].dtype)
+                rec[sel, k] = pac[sel, k] + _dequant(q, st)
+            every = torch.ones(rows, len(cs), dtype=torch.bool, device=dev)
+            dc = parent_recon(blk, cs, every)
+            if root and not decode:
+                q_root_out[blk[:, None], cols] = quant_f_mirror(
+                    recon_p[blk][:, cs], st, d, rc, count).to(
+                        q_root_out.dtype)
+            v8 = _inverse_mirror(cf, dc, rec)
+            val, dst = v8[child], g[child]
+            recon_c[dst[:, None], cols] = ((val + HALF) >> F) \
+                if mode & MODE_FINAL else val
+            if pf_c is not None:
+                pf_c[dst[:, None], cols] = fdiv_mirror(
+                    val << QA, swc[child][:, None], rs[child][:, None], count)
+            if c0 == 0:
+                cnt_c[dst] = t["cnt_p"][:, None].expand(-1, 8)[child]
+    if stats is not None:
+        stats += count
 
 
 CUDA_LAUNCHERS = (_cuda_truth, _cuda_group)

@@ -19,6 +19,19 @@ nothing).
   (``MIRROR_LAUNCHERS``: the roots (de)quantised in the first group,
   the children's means handed on, the last decode group's shift).
 
+* The redesigned kernels (``raht_fp_group``'s exact FP64 division with
+  its int64 general path, tiles, gather and prologue; ``octree_expand``'s
+  rounds of one row a lane, its tile-plus-round prefixes and its
+  ping-pong buffers with no intermediate padding): ``fdiv_mirror`` and
+  ``quant_f_mirror`` against Python's floor division and ``_quant``
+  (seeded and ``hypothesis`` numerators, every divisor kind), the group
+  mirror at the kernel's tile and a ragged one on clouds of depth 1, 3
+  (one with exactly one tile of 32 parent blocks) and 10, at 1, 3 and 5
+  channels (5: two channel windows), against the plain loop and the JAX
+  ``DeviceFpRaht``, the expansion mirrors at the kernel's round, one
+  warp's and a ragged one against the plain versions and the JAX
+  ``decode_expand_stream``/``_expand_level``.
+
 Tolerance everywhere: exact equality (every lane is integer).
 """
 
@@ -255,7 +268,7 @@ def test_expand_level_mirror_matches_ref(depth, tile):
     levels, _ = _level_inputs(occ, counts, depth, nmax)
     for nodes, o in levels:
         for occ_in in (o, o.to(torch.uint8)):
-            got = tops.expand_level_mirror(nodes, occ_in, nmax, tile=tile)
+            got = tops.expand_level_mirror(nodes, occ_in, nmax, threads=tile)
             want = tops._expand_level_ref(nodes, o, nmax)
             assert all(torch.equal(a, b) for a, b in zip(got, want))
 
@@ -266,7 +279,7 @@ def test_expand_level_mirror_drops_children_past_nmax():
     l = int(torch.argmax(counts[1:] - counts[:-1]))  # the widest fan-out
     nodes, o = levels[l]
     nmax = int(counts[l]) + 3                  # fewer slots than children
-    got = tops.expand_level_mirror(nodes[:nmax], o[:nmax], nmax, tile=64)
+    got = tops.expand_level_mirror(nodes[:nmax], o[:nmax], nmax, threads=64)
     want = tops._expand_level_ref(nodes[:nmax], o[:nmax], nmax)
     assert int(want[1]) > nmax
     assert all(torch.equal(a, b) for a, b in zip(got, want))
@@ -501,3 +514,302 @@ def test_stage_split_rehearses_on_the_cpu(capsys):
         assert 0 <= out[f"{stage}_host_s"] <= out[f"{stage}_s"]
     assert out["device"] == "cpu" and "card" not in out
     assert set(out["launches_over_timed_runs"].values()) == {0}
+
+
+# ---- the redesigned kernels: exact divisions, staged tiles, real rows ----
+
+I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
+FAST = tfp.FAST_DIV_LIMIT
+
+
+def _floor_py(a, d):
+    """Python's exact floor division, as int64 tensors."""
+    return torch.tensor([int(x) // int(y) for x, y in zip(a, d)],
+                        dtype=torch.int64)
+
+
+def _divisors(rng, n):
+    """The group kernel's divisor kinds across their ranges: 3 st for
+    steps of every size, the prediction's weight sums (w_self plus up to
+    six neighbour weights; custom weights up to past the fast limit),
+    and Q15 square roots of subtree weights 1..2^31."""
+    st = rng.integers(1, 1 << 40, n)
+    three_st = 3 * st
+    wsum = np.concatenate([rng.integers(1, 22, n // 2),
+                           rng.integers(1, FAST + 1000, n - n // 2)])
+    sw = np.floor(np.sqrt(rng.integers(1, 1 << 31, n).astype(np.float64))
+                  * (1 << 15)).astype(np.int64)
+    return {"3st": three_st, "wsum": wsum, "sw": sw}
+
+
+def _numerators(rng, n):
+    """Seeded int64 numerators: small and Q13-sized, near and past the
+    fast limit, +-2^62, INT64_MIN + 1, negative means."""
+    parts = [rng.integers(-(1 << 20), 1 << 20, n),
+             rng.integers(-(1 << 46), 1 << 46, n),
+             rng.integers(-FAST - 5, FAST + 6, n),
+             rng.integers(I64_MIN + 1, I64_MAX, n, dtype=np.int64),
+             np.array([FAST, -FAST, FAST + 1, -FAST - 1, 1 << 62,
+                       -(1 << 62), I64_MIN + 1, I64_MAX, 0, -1, 1])]
+    return np.concatenate(parts)
+
+
+@pytest.mark.parametrize("kind", ["3st", "wsum", "sw"])
+def test_fdiv_mirror_equals_floor_division(kind):
+    """Both paths of the group kernel's division against Python's floor
+    division, for each divisor kind: the fast path exactly where |a| <=
+    2^51 and 1 <= d <= 2^51."""
+    rng = np.random.default_rng(14)
+    a = _numerators(rng, 3000)
+    d = _divisors(rng, a.size)[kind]
+    a_t, d_t = torch.as_tensor(a), torch.as_tensor(d)
+    count = torch.zeros(2, dtype=torch.int64)
+    q = tfp.fdiv_mirror(a_t, d_t, tfp.fast_rcp_mirror(d_t), count)
+    assert torch.equal(q, _floor_py(a, d))
+    fast = (np.abs(a.astype(object)) <= FAST) & (d >= 1) & (d <= FAST)
+    assert int(count[0]) == int(fast.sum()) > 0
+    assert int(count[1]) == a.size - int(fast.sum()) > 0
+
+
+def test_fdiv_mirror_fast_path_at_its_edges():
+    """Numerators at and around multiples of the divisor, both signs, at
+    the fast limit's edge: the FP64 quotient's one-step correction."""
+    d = torch.tensor([1, 3, 7, 21, 3 * 13000, 1 << 15, (1 << 25) + 1,
+                      FAST - 1, FAST], dtype=torch.int64)
+    k = torch.tensor([0, 1, 2, 3, 1 << 20, (1 << 36) + 1], dtype=torch.int64)
+    a = (k[:, None, None] * d[None, :, None]
+         + torch.tensor([-1, 0, 1])[None, None, :])
+    a = torch.cat([a, -a]).reshape(-1)
+    a = a.clamp(-FAST, FAST)
+    dd = d[None, :, None].expand(12, -1, 3).reshape(-1)
+    count = torch.zeros(2, dtype=torch.int64)
+    q = tfp.fdiv_mirror(a, dd, tfp.fast_rcp_mirror(dd), count)
+    assert torch.equal(q, _floor_py(a.tolist(), dd.tolist()))
+    assert int(count[1]) == 0
+
+
+def test_quant_f_mirror_equals_quant_where_24_res_wraps():
+    """The kernel's quantiser against the plain ``_quant`` on residuals
+    whose 24 |res| + st wraps int64 (general path) and on ordinary ones
+    (fast path)."""
+    rng = np.random.default_rng(7)
+    steps = torch.tensor([13000, 17000, 9000])
+    res = np.concatenate([rng.integers(-(1 << 30), 1 << 30, (500, 3)),
+                          rng.integers(1 << 58, 1 << 62, (200, 3)),
+                          -rng.integers(1 << 58, 1 << 62, (200, 3)),
+                          np.full((1, 3), I64_MIN + 1),
+                          np.full((1, 3), I64_MIN)])
+    res = torch.as_tensor(res)
+    count = torch.zeros(2, dtype=torch.int64)
+    got = tfp.quant_f_mirror(res, steps, 3 * steps,
+                             tfp.fast_rcp_mirror(3 * steps), count)
+    assert torch.equal(got, tfp._quant(res, steps))
+    assert int(count[0]) > 0 and int(count[1]) > 0
+
+
+try:
+    from hypothesis import given, settings, strategies as hst
+except ImportError:                      # pragma: no cover
+    given = None
+
+if given is not None:
+    @settings(max_examples=400, deadline=None, database=None)
+    @given(a=hst.one_of(hst.integers(-FAST, FAST),
+                        hst.integers(I64_MIN + 1, I64_MAX),
+                        hst.sampled_from([1 << 62, -(1 << 62),
+                                          I64_MIN + 1])),
+           d=hst.one_of(hst.integers(1, 21), hst.integers(1, FAST),
+                        hst.integers(FAST + 1, I64_MAX)))
+    def test_fdiv_mirror_hypothesis(a, d):
+        """Any int64 numerator over any positive divisor."""
+        q = tfp.fdiv_mirror(torch.tensor([a]), torch.tensor([d]),
+                            tfp.fast_rcp_mirror(torch.tensor([d])))
+        assert int(q) == a // d
+
+
+def _one_warp_cloud(depth, nchan, seed=11):
+    """A cloud whose finest group has exactly 32 parent blocks (one tile
+    of the kernel, one warp of its blocks), 1-8 children each."""
+    rng = np.random.default_rng(seed)
+    side = 1 << (depth - 1)
+    cells = rng.choice(side ** 3, 32, replace=False)
+    parents = np.stack(np.unravel_index(cells, (side,) * 3), 1)
+    pts = []
+    for par in parents:
+        kids = rng.choice(8, rng.integers(1, 9), replace=False)
+        for k in kids:
+            pts.append(2 * par + [(k >> 2) & 1, (k >> 1) & 1, k & 1])
+    pos = np.unique(np.array(pts), axis=0)
+    codes = np.sort(tmorton.encode(pos))
+    vals = rng.integers(0, 256, (codes.size, nchan)).astype(np.int64)
+    return codes, vals
+
+
+def _deep_cloud(depth, nchan, n, seed=12):
+    rng = np.random.default_rng(seed)
+    pos = np.unique(rng.integers(0, 1 << depth, (n, 3)), axis=0)
+    codes = np.sort(tmorton.encode(pos))
+    vals = rng.integers(0, 256, (codes.size, nchan)).astype(np.int64)
+    return codes, vals
+
+
+REDESIGN_CLOUDS = {
+    "d1": lambda c: (np.arange(8, dtype=np.int64)[[0, 2, 3, 7]],
+                     np.arange(4 * c).reshape(4, c).astype(np.int64) * 37),
+    "d3": lambda c: _deep_cloud(3, c, 90),
+    "d3_one_warp": lambda c: _one_warp_cloud(3, c),
+    "d10": lambda c: _deep_cloud(10, c, 400),
+}
+REDESIGN_DEPTH = {"d1": 1, "d3": 3, "d3_one_warp": 3, "d10": 10}
+
+
+# the group kernel's channel counts: one, the colours, and more than its
+# window (tfp.GROUP_WINDOW) of 4
+REDESIGN_STEPS = STEPS + [11000, 21000]
+
+
+@pytest.mark.parametrize("nchan", [1, 3, 5])
+@pytest.mark.parametrize("name", list(REDESIGN_CLOUDS))
+def test_group_mirror_tiles_match_plain_and_jax(name, nchan):
+    """``group_mirror`` (the kernel's tiles, gather, prologue and fast
+    divisions; at 5 channels two windows, the second gathering its means
+    again) driven through ``DeviceFpRaht``'s card loop at the kernel's
+    tile and at a ragged 7-block tile: the same q rows, reconstruction
+    and decode as the plain loop and as the JAX package's
+    ``DeviceFpRaht`` (its jitted ``_enc_group``/``_dec_group``)."""
+    import functools
+
+    codes, vals = REDESIGN_CLOUDS[name](nchan)
+    depth = REDESIGN_DEPTH[name]
+    steps = REDESIGN_STEPS[:nchan]
+    assert (nchan > tfp.GROUP_WINDOW) == (nchan == 5)
+    dv = tfp.DeviceFpRaht(codes, depth, steps, device="cpu")
+    if name == "d3_one_warp":
+        assert dv.plans[0]["az"].shape[0] == 32
+    qs = []
+    recon = dv._encode_plain(torch.as_tensor(vals), qs.append)
+    jq = []
+    jdv = jfp.DeviceFpRaht(codes, depth, steps)
+    jrecon = jdv.encode(vals, jq.append)
+    assert np.array_equal(np.asarray(jrecon), recon.numpy())
+    assert all(np.array_equal(np.asarray(a), b) for a, b in zip(jq, qs))
+    rows = torch.as_tensor(np.concatenate(qs).astype(np.int64))
+    it = iter(np.asarray(q) for q in jq)
+    jdec = np.asarray(jdv.decode(lambda m: next(it), nchan))
+    _, root, groups = dv._rows()
+    cuts = [root] + [c for grp in groups for c in grp]
+    for tile in (tfp.GROUP_TILE, 7):
+        launchers = (tfp.truth_level_mirror,
+                     functools.partial(tfp.group_mirror, tile=tile))
+        recon_k, qbuf = dv._encode_kernels(torch.as_tensor(vals), launchers)
+        assert torch.equal(recon_k, recon)
+        assert all(np.array_equal(qbuf[c].numpy(), q)
+                   for c, q in zip(cuts, qs))
+        dec = dv._decode_kernels(rows, launchers)
+        assert np.array_equal(dec.numpy(), jdec)
+
+
+def test_group_mirror_counts_general_divisions_on_extreme_values():
+    """A group called alone on parents' reconstructions of +-2^62 (their
+    means wrap) takes the general path and still equals ``_enc_group_ref``
+    and ``_dec_group_ref``; ordinary values take only the fast path."""
+    _, _, (_, enc, dec), _ = _case(("n2000", 3))
+    args, kw, _ = enc[2]
+    rng = np.random.default_rng(2)
+    big = args[0].clone()
+    big[::5] = torch.as_tensor(rng.integers(-(1 << 62), 1 << 62,
+                                            big[::5].shape))
+    for recon, general in ((args[0], False), (big, True)):
+        a = (recon,) + tuple(args[1:])
+        p = a[6]
+        mp, mc, counts = tfp._group_shapes(p)
+        c = a[5].shape[0]
+        q = [torch.empty(n, c, dtype=torch.int64) for n in counts]
+        recon_c = torch.empty(mc, c, dtype=torch.int64)
+        cnt = torch.empty(mc, dtype=torch.int64)
+        stats = torch.zeros(2, dtype=torch.int64)
+        tfp.group_mirror(p, tfp.row_offsets(p), mp, tfp.MODE_HAVE_GRAND,
+                         a[0], None, a[1], a[5], list(a[2:5]), None, q, None,
+                         recon_c, None, cnt, kw["t0"], kw["weights"], stats)
+        want = tfp._enc_group_ref(*a, **kw)
+        assert all(torch.equal(x, y) for x, y in zip((*q, recon_c, cnt),
+                                                     want))
+        assert int(stats[0]) > 0
+        assert (int(stats[1]) > 0) == general
+        dq = tfp._dec_group_ref(recon, a[1], *want[:3], a[5], p, **kw)
+        recon_d = torch.empty(mc, c, dtype=torch.int64)
+        tfp.group_mirror(p, tfp.row_offsets(p), mp,
+                         tfp.MODE_DECODE | tfp.MODE_HAVE_GRAND, recon, None,
+                         a[1], a[5], list(want[:3]), None, [None] * 3, None,
+                         recon_d, None, cnt, kw["t0"], kw["weights"])
+        assert torch.equal(recon_d, dq[0])
+
+
+# rows a round: the kernel's, one warp's, and one that no level's rows
+# fill evenly
+EXPAND_ROUNDS = [tops.EXPAND_ROUND, 32, 96]
+
+
+@pytest.mark.parametrize("threads", EXPAND_ROUNDS,
+                         ids=["kernel", "one_warp", "ragged"])
+@pytest.mark.parametrize("depth", [1, 3, 10])
+def test_expand_stream_mirror_matches_ref_and_jax(depth, threads):
+    """The expansion's walk (counting pass, rounds of one row a lane,
+    ping-pong buffers that start unwritten, padding only at the last
+    level) against ``decode_expand_stream_ref`` and the JAX
+    ``decode_expand_stream``, with nmax the leaf count exactly and with
+    room to spare: codes, count, and the padding rows."""
+    n = {1: 6, 3: 60, 10: 1500}[depth]
+    codes, occ, counts = _stream(depth, n=n, seed=depth)
+    for nmax in (codes.size, codes.size + 37):
+        got = tops.expand_stream_mirror(occ, counts, depth, nmax,
+                                        threads=threads)
+        want = tops.decode_expand_stream_ref(occ, counts, depth, nmax)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        jcodes, jcnt = jops.decode_expand_stream(
+            jnp.asarray(occ.numpy()), jnp.asarray(counts.numpy()), depth,
+            nmax)
+        assert np.array_equal(got[0].numpy(), np.asarray(jcodes))
+        assert int(got[1]) == int(jcnt) == codes.size
+        assert np.array_equal(got[0][:codes.size].numpy(), codes)
+        assert bool((got[0][codes.size:] == tops.I64_MAX).all())
+
+
+def test_expand_stream_mirror_one_node_first_levels():
+    """A stream whose first levels hold one node each (every point in
+    one small corner), nmax filled exactly."""
+    rng = np.random.default_rng(4)
+    pos = np.unique(rng.integers(0, 4, (40, 3)), axis=0)
+    codes = np.sort(tmorton.encode(pos))
+    depth = 8
+    occ, counts = tops.encode_occ_u8_ref(torch.as_tensor(codes), depth,
+                                         depth * codes.size + 64)
+    assert counts[:6].tolist() == [1] * 6
+    got = tops.expand_stream_mirror(occ, counts, depth, codes.size,
+                                    threads=32)
+    want = tops.decode_expand_stream_ref(occ, counts, depth, codes.size)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("threads", EXPAND_ROUNDS,
+                         ids=["kernel", "one_warp", "ragged"])
+def test_expand_level_mirror_pads_and_sources(threads):
+    """``expand_level_mirror`` at the kernel's tile, one warp a round and
+    a ragged tile: each level's codes, count and source rows equal
+    ``_expand_level_ref``'s, the rows past the count INT64_MAX with
+    source row nmax - 1, and the JAX ``_expand_level``'s codes."""
+    codes, occ, counts = _stream(7, n=900, seed=5)
+    nmax = codes.size + 5
+    levels, _ = _level_inputs(occ, counts, 7, nmax)
+    for nodes, o in levels:
+        got = tops.expand_level_mirror(nodes, o, nmax, threads=threads)
+        want = tops._expand_level_ref(nodes, o, nmax)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        total = int(got[1])
+        if total < nmax:
+            assert bool((got[0][total:] == tops.I64_MAX).all())
+            assert bool((got[2][total:] == nmax - 1).all())
+        jout, _ = jops._expand_level(jnp.asarray(nodes.numpy()),
+                                     jnp.asarray(o.numpy()), nmax)
+        assert np.array_equal(got[0].numpy(), np.asarray(jout))
+
