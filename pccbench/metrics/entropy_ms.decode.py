@@ -1,0 +1,7 @@
+"""entropy_ms.decode: the host range decoders, per frame:
+``decode_pipelined``'s ``host_entropy_s`` plus the harness's ``read_q``."""
+
+
+def read(run):
+    return run.per_frame_ms(run.counter_total("decode.geom_entropy")
+                            + run.counter_total("decode.read_q"))

@@ -1,0 +1,8 @@
+"""raht_fp_group_roofline.decode: the group kernel's byte bound over its
+device time in the decode sides (pccbench/roofline/raht_fp_group.py)."""
+
+from pccbench.roofline import raht_fp_group
+
+
+def read(run):
+    return run.roofline(raht_fp_group, "decode")
