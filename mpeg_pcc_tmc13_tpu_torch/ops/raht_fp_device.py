@@ -61,6 +61,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..utils import timing
 from ..utils.device import resolve as resolve_device
 from . import _kernels, raht_fp
 from .raht import _offset_neighbor_codes, _TOUCH_TABLE
@@ -152,8 +153,9 @@ def build_fp_plan(leaf_codes: np.ndarray, depth: int,
 
         parent_codes = parent[first]
         parent_w = wx[:, 0]
-        nbr_idx, nbr_ok = _offset_neighbor_codes(
-            parent_codes, depth - 1 - g)
+        with timing.counted("raht.plan.search_s"):
+            nbr_idx, nbr_ok = _offset_neighbor_codes(
+                parent_codes, depth - 1 - g)
         cnt_p = 1 + nbr_ok.sum(axis=1).astype(np.int64)
 
         plans.append(GroupPlan(
@@ -1093,9 +1095,11 @@ class DeviceFpRaht:
         self.weights = tuple(int(w) for w in weights)
         self.steps = torch.as_tensor(np.asarray(steps_q16, dtype=np.int64),
                                      device=self.device)
-        host_plans = build_fp_plan(leaf_codes, depth, thresholds)
-        self.plans = plans_to_torch(host_plans, self.device)
-        self.offsets = [row_offsets(p) for p in self.plans]
+        with timing.span("raht.plan.build"):
+            host_plans = build_fp_plan(leaf_codes, depth, thresholds)
+        with timing.span("raht.plan.upload"):
+            self.plans = plans_to_torch(host_plans, self.device)
+            self.offsets = [row_offsets(p) for p in self.plans]
         self.pair_counts = [(hp.flat_z.size, hp.flat_y.size,
                              hp.flat_x.size) for hp in host_plans]
         self.n_roots = host_plans[-1].mp if host_plans else \

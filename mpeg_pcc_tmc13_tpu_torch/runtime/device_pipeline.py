@@ -39,6 +39,7 @@ import torch
 
 from ..bitstream import entropy
 from ..ops import octree as ops
+from ..utils import timing
 from ..utils.device import resolve as resolve_device
 
 
@@ -156,7 +157,11 @@ def encode_pipelined(codes_sorted: np.ndarray, depth: int, enc, ctx,
     # used prefix.  Returns (occ, total), occ None when the slice
     # overflowed its budget.  ``.cpu()`` waits for the producing
     # kernels, so the host never reads a buffer early.
-    _fetch = _fetch_packed if packed_link else _fetch_raw
+    fetch_link = _fetch_packed if packed_link else _fetch_raw
+
+    def _fetch(buf):
+        with timing.span("geom.fetch"):
+            return fetch_link(buf)
 
     # stages 2+3 overlapped: the prefetch thread pulls slice s+1 through
     # the link while the main thread entropy-codes slice s
@@ -175,15 +180,16 @@ def encode_pipelined(codes_sorted: np.ndarray, depth: int, enc, ctx,
             if occ is None:
                 # undersized budget: redo this slice through the raw
                 # link with room to spare
-                big = max(64, int(max(total, cap) * 1.25)) & ~63
-                h = ops.encode_occ_u8_hdr(device_codes[si], depth,
-                                          big).cpu().numpy()
-                total = int(h[:hdr].view(np.uint32).sum())
-                occ = h[hdr:hdr + total]
-                fetched[0] += h.nbytes
-            th = time.perf_counter()
-            enc.occ_stream(ctx.occupancy_sym, occ, depth)
-            t_host += time.perf_counter() - th
+                with timing.span("geom.redo"):
+                    big = max(64, int(max(total, cap) * 1.25)) & ~63
+                    h = ops.encode_occ_u8_hdr(device_codes[si], depth,
+                                              big).cpu().numpy()
+                    total = int(h[:hdr].view(np.uint32).sum())
+                    occ = h[hdr:hdr + total]
+                    fetched[0] += h.nbytes
+            with timing.timed("geom.entropy") as coding:
+                enc.occ_stream(ctx.occupancy_sym, occ, depth)
+            t_host += coding.seconds
             ncounts.append(total)
     finally:
         if pool is not None:
@@ -220,18 +226,19 @@ def decode_pipelined(dec, ctx, depth: int, num_slices: int,
     link = 0
     outs = []
     for _ in range(num_slices):
-        th = time.perf_counter()
-        occ = dec.occ_stream(ctx.occupancy_sym, host_cap, depth)
-        t_host += time.perf_counter() - th
+        with timing.timed("geom.entropy") as coding:
+            occ = dec.occ_stream(ctx.occupancy_sym, host_cap, depth)
+        t_host += coding.seconds
         # per-level counts from the self-delimiting stream
-        counts = np.zeros(depth, dtype=np.int32)
-        pos, ln = 0, 1
-        pops = ops.popcount8_np(occ)
-        for l in range(depth):
-            counts[l] = ln
-            nxt = int(pops[pos:pos + ln].sum())
-            pos += ln
-            ln = nxt
+        with timing.span("geom.count"):
+            counts = np.zeros(depth, dtype=np.int32)
+            pos, ln = 0, 1
+            pops = ops.popcount8_np(occ)
+            for l in range(depth):
+                counts[l] = ln
+                nxt = int(pops[pos:pos + ln].sum())
+                pos += ln
+                ln = nxt
         cap = -(-occ.size // bucket) * bucket
         pad = np.zeros(cap, dtype=np.uint8)
         pad[:occ.size] = occ

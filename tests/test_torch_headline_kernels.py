@@ -500,22 +500,6 @@ def test_cuda_tensor_launches_the_kernels():
     assert tfp.LAUNCHES["raht_fp_group"] == depth
 
 
-def test_stage_split_rehearses_on_the_cpu(capsys):
-    """``scripts/stage_split.py`` (the host/device split of the headline's
-    stages) runs its control flow on the CPU with ``--device=cpu``: every
-    stage's host part within its wall, no profile, no card named."""
-    import json
-
-    from mpeg_pcc_tmc13_tpu_torch.scripts import stage_split
-    assert stage_split.main(["--device", "cpu", "--points", "3000",
-                             "--depth", "7", "--reps", "1"]) == 0
-    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    for stage in ("geom_decode", "attr_encode", "attr_decode"):
-        assert 0 <= out[f"{stage}_host_s"] <= out[f"{stage}_s"]
-    assert out["device"] == "cpu" and "card" not in out
-    assert set(out["launches_over_timed_runs"].values()) == {0}
-
-
 # ---- the redesigned kernels: exact divisions, staged tiles, real rows ----
 
 I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
