@@ -12,7 +12,8 @@ printed line:
   (b) build of the port's native host library from ``native/`` with g++
       (its path and build seconds) and of the hand-written CUDA kernels
       from ``csrc/`` with nvcc, with ptxas's registers, shared memory and
-      spills of ``raht_fp_group`` and ``octree_expand``,
+      spills of ``raht_fp_group``, ``octree_expand`` and the planner's
+      ``plan_blocks``,
   (c) each block kernel against its plain PyTorch version on the card,
       bit for bit, at ragged batch sizes and all 256 occupancy patterns,
       for 1 and 3 channels and, through the wrappers' split into runs of
@@ -21,9 +22,10 @@ printed line:
       depth 11, qp 22): geometry encode/decode, fixed-point RAHT colour
       encode/decode, the float RAHT lane, each checked against its
       reference, with the kernels' launch counts from this run (the
-      block kernels and the headline path's four: the occupancy pass,
-      the expansion, the truth levels and the coded groups); first,
-      the entry points called without a device run on ``cuda:0``,
+      block kernels and the headline path's five: the occupancy pass,
+      the expansion, the RAHT planner, the truth levels and the coded
+      groups); first, the entry points called without a device run on
+      ``cuda:0``,
   (p) the headline path's four kernels against their plain versions at
       the bench cloud's shapes, every level and group, max abs
       difference 0: ``octree_occ_u8`` at the pipeline's cap and at an
@@ -36,7 +38,11 @@ printed line:
       on parents of +-2^62 (its division's general path), with the
       kernel's count of fast and general divisions there and over the
       main path's 22 groups, and ``DeviceFpRaht``'s loop at 5 channels
-      (two channel windows) against the plain loop,
+      (two channel windows) against the plain loop; and the RAHT
+      planner ``build_plan`` on the bench cloud's codes against its
+      plain version on the card and against the host spec
+      (``build_fp_plan``, ``plans_to_torch``, ``row_offsets``), every
+      level's tensors and the counts, each tensor 16-byte aligned,
   (e) a depth-21 geometry round trip (the 63-bit Morton domain),
   (g) the rANS brick at the bench size through ``models.geometry_rans``
       (one table-pass launch and one emission per encode, one decode
@@ -130,7 +136,11 @@ printed line:
       beside it, as a diagnostic of the code, not a bound) and, for the
       rANS kernels and the expansion, the serial chain that
       floors them (as a time: its steps times one step's dependent
-      latency, measured by running the chain alone); plus the rANS
+      latency, measured by running the chain alone); the RAHT planner
+      as ``DeviceFpRaht`` runs it on the bench cloud (not a graph: it
+      reads its counts on the host), its three kernels' device time
+      from ``torch.profiler``, its byte bound, and the host planner it
+      replaced with its upload; plus the rANS
       encode/decode wall times, first and warm, and one warm rANS encode
       and decode under ``torch.profiler``:
       the device operations that took most time, the device-busy share
@@ -233,7 +243,14 @@ KERNELS = {
                             "mpeg_pcc_tmc13_tpu/ops/raht_fp_device.py:335"),
     "raht_fp_group": ("raht_fp_group", "raht_fp_loop.cu",
                       "mpeg_pcc_tmc13_tpu/ops/raht_fp_device.py:342"),
+    # no TPU kernel: the JAX package plans on the host and uploads
+    "raht_fp_plan": ("raht_fp_plan", "raht_fp_plan.cu",
+                     "mpeg_pcc_tmc13_tpu/ops/raht_fp_device.py:99"),
 }
+# the planner's three kernels, by a part of their entry names
+PLAN_KERNELS = ("plan_count_kernel", "plan_scatter_kernel",
+                "plan_blocks_kernel")
+PLAN_PLAIN_REPS = 2             # the plain planner takes ~0.2 s a pass
 MESH_SLICES = 8                 # (m): the bench cloud cut into 8 slices
 MESH_VALUE_SEED = 8             # (m4): its Q13 values
 PAIR_LAW_SAMPLE = 4096          # (m4): blocks held to raht_fp's pair law
@@ -493,7 +510,8 @@ def phase_d(device, uniq, depth, colors, qp=BENCH_QP):
     launches = dict(rb.LAUNCHES)
     launches.update(octree.LAUNCHES)
     launches.update((k, fpd.LAUNCHES[k]) for k in ("raht_fp_truth_level",
-                                                   "raht_fp_group"))
+                                                   "raht_fp_group",
+                                                   "raht_fp_plan"))
 
     # geometry: the same port code on CPU tensors gives the same stream
     enc = host.RangeEncoder()
@@ -744,6 +762,7 @@ def phase_p(device, uniq, depth, colors, qp=BENCH_QP):
                                                            rows))
     errs["raht_fp_group"] = max(errs["raht_fp_group"],
                                 _group_wide_checks(dv, vals, launchers))
+    errs["raht_fp_plan"] = _plan_checks(codes, uniq, depth)
     _sync(device)
     _line("p", occ_u8_caps=f"{cap},{small}", nodes=total,
           expand_levels=depth, truth_levels=len(truth), enc_groups=len(enc),
@@ -1012,6 +1031,50 @@ def _wide_row_check(rec, device, occurrences=WIDE_ROW_OCCURRENCES):
            f"table_pass differs from its plain version on a row of "
            f"{occurrences} occurrences: max abs {errs['table_pass']}")
     return errs, wide, occurrences + 255
+
+
+def _host_spec_plan(uniq, depth, device):
+    """The host planner's plan on ``device``: ``build_fp_plan``, then
+    ``plans_to_torch`` and ``row_offsets``, as a ``FramePlan``."""
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp_device as fpd
+    host = fpd.build_fp_plan(uniq, depth)
+    plans = fpd.plans_to_torch(host, device)
+    return fpd.FramePlan(
+        plans, [fpd.row_offsets(q) for q in plans],
+        [(h.flat_z.size, h.flat_y.size, h.flat_x.size) for h in host],
+        host[-1].mp if host else uniq.size)
+
+
+def _plan_checks(codes, uniq, depth):
+    """``build_plan``'s kernels on the bench cloud's codes against its
+    plain version ``build_plan_ref`` on the card and against the host
+    spec, every level's tensors and row offsets (dtype, shape, values)
+    and the counts; every tensor 16-byte aligned.  Returns the max abs
+    difference, which must be 0."""
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp_device as fpd
+    got = fpd.build_plan(codes, depth)
+    _check(len(got.plans) == depth, f"build_plan gave {len(got.plans)} "
+           f"levels, not {depth}")
+    err = 0.0
+    for what, want in (
+            ("build_plan_ref", fpd.build_plan_ref(codes, depth)),
+            ("the host spec", _host_spec_plan(uniq, depth, codes.device))):
+        _check((got.n_roots, got.pair_counts, len(got.plans))
+               == (want.n_roots, want.pair_counts, len(want.plans)),
+               f"build_plan's counts differ from {what}'s")
+        for g, (a, b) in enumerate(zip(got.plans, want.plans)):
+            _check(a.keys() == b.keys(), f"build_plan's level {g} holds "
+                   f"other tensors than {what}'s")
+            keys = sorted(b)
+            err = max(err, _equal_or_fail(
+                "raht_fp_plan", tuple(a[k] for k in keys) + got.offsets[g],
+                tuple(b[k] for k in keys) + want.offsets[g],
+                f"({what}, level {g})"))
+    _check(all(t.data_ptr() % 16 == 0 and t.is_contiguous()
+               for p, offs in zip(got.plans, got.offsets)
+               for t in list(p.values()) + list(offs)),
+           "a plan tensor of build_plan is not 16-byte aligned")
+    return err
 
 
 def _max_abs_diff(pairs):
@@ -2444,8 +2507,70 @@ def phase_f(device, uniq, depth, colors, rans, errs, headline):
     times.update(rans_times)
     head_times, head_chains = _headline_times(headline)
     times.update(head_times)
+    times["raht_fp_plan"] = _plan_times(headline.codes, uniq, depth)
     chain_ms.update(head_chains)
     return times, chain_ms
+
+
+def _plan_times(codes, uniq, depth, reps=TIMING_REPS):
+    """The RAHT planner as ``DeviceFpRaht`` runs it on the bench cloud
+    (``build_plan``: three launches and one host read of the counts)
+    against its plain version, in turns plain, kernel, kernel, plain,
+    CUDA events around whole passes (the pass waits for its counts, so
+    it cannot be captured as a graph); its device time, the three
+    kernels' under ``torch.profiler``; its bound, the codes read and
+    every plan tensor written once; and, beside it, the host planner it
+    replaced (``build_fp_plan``, then the upload: ``plans_to_torch`` and
+    ``row_offsets``) by the host clock.  Returns (pass ms, plain ms,
+    device ms, bound ms, what bounds it)."""
+    import torch
+
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp_device as fpd
+
+    def kern():
+        return fpd.build_plan(codes, depth)
+
+    def ref():
+        return fpd.build_plan_ref(codes, depth)
+    p1 = _time_pass_ms(ref, PLAN_PLAIN_REPS)
+    k1 = _time_pass_ms(kern, reps)
+    k2 = _time_pass_ms(kern, reps)
+    p2 = _time_pass_ms(ref, PLAN_PLAIN_REPS)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            kern()
+        torch.cuda.synchronize()
+    dev = dict.fromkeys(PLAN_KERNELS, 0.0)
+    for ev in prof.key_averages():
+        for name in PLAN_KERNELS:
+            if name in ev.key:
+                us = getattr(ev, "device_time_total", None)
+                if us is None:
+                    us = ev.cuda_time_total
+                dev[name] += us / 1e3 / reps
+    d = sum(dev.values())
+    _check(all(v > 0 for v in dev.values()),
+           f"torch.profiler timed not every planner kernel: {dev}")
+    plan = kern()
+    nbytes = _io_bytes(codes, *(t for p, offs in zip(plan.plans,
+                                                     plan.offsets)
+                                for t in list(p.values()) + list(offs)))
+    bound, by = _bound_ms(nbytes)
+    t0 = time.perf_counter()
+    host = fpd.build_fp_plan(uniq, depth)
+    t1 = time.perf_counter()
+    [fpd.row_offsets(q) for q in fpd.plans_to_torch(host, codes.device)]
+    _sync(codes.device)
+    t2 = time.perf_counter()
+    _line("f", kernel="raht_fp_plan", levels=depth, points=codes.numel(),
+          kernel_ms=f"{k1:.4f},{k2:.4f}", plain_ms=f"{p1:.4f},{p2:.4f}",
+          device_ms=f"{d:.4f}",
+          kernels_ms=",".join(f"{v:.4f}" for v in dev.values()),
+          bound_ms=f"{bound:.4f}", bound_by=by, share=f"{bound / d:.4f}",
+          bytes=nbytes, host_plan_ms=f"{(t1 - t0) * 1e3:.1f}",
+          host_upload_ms=f"{(t2 - t1) * 1e3:.1f}")
+    return min(k1, k2), min(p1, p2), d, bound, by
 
 
 # host-side calls that wait for the device, as the profiler names them:
@@ -2857,7 +2982,7 @@ def _level_bytes(rec):
 # the kernels whose registers, shared memory and spills (b) prints, by a
 # part of their (possibly mangled) entry names
 PTXAS_KERNELS = ("raht_fp_group_kernel", "octree_expand_count_kernel",
-                 "octree_expand_level_kernel")
+                 "octree_expand_level_kernel", "plan_blocks_kernel")
 
 
 def _ptxas_report(so, names):

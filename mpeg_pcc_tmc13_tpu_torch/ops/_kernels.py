@@ -184,4 +184,11 @@ def _open(so: Path):
     lib.raht_fp_group_launch.restype = i32
     lib.raht_fp_group_smem_bytes.argtypes = [i32]
     lib.raht_fp_group_smem_bytes.restype = i32
+    lib.raht_fp_plan_scratch_words.argtypes = [i64, i32]
+    lib.raht_fp_plan_scratch_words.restype = i64
+    lib.raht_fp_plan_count_launch.argtypes = [vp, i64, i32, vp, vp]
+    lib.raht_fp_plan_count_launch.restype = i32
+    lib.raht_fp_plan_build_launch.argtypes = [
+        vp, i64, i32, i64, vp, pp, ctypes.POINTER(ctypes.c_int64), vp]
+    lib.raht_fp_plan_build_launch.restype = i32
     return lib

@@ -9,9 +9,12 @@ device codec, and the zrow stream is the same whichever codes it.
 
 The per-frame structure (block gathers, Q15 butterfly coefficients,
 18-neighbour tables, sqrt scales, pair masks, coded-order compaction
-indices) comes from the host planner ``build_fp_plan``, numpy copied
-line for line from the reference module (its lines 38-153);
-``plans_to_torch`` carries it to the device.
+indices) is the plan.  The host planner ``build_fp_plan``, numpy copied
+line for line from the reference module (its lines 38-153), is its spec
+and the CPU path, ``plans_to_torch`` carrying it over.  On a CUDA device
+``build_plan`` builds the same tensors there from the uploaded leaf
+codes: three launches of ``csrc/raht_fp_plan.cu`` and one host read of
+the counts (plain version ``build_plan_ref``).
 
   encode: truth bottom-up (block butterflies), then top-down per
   group: prediction from reconstructed parent means -> forward network
@@ -56,7 +59,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from dataclasses import dataclass
-from typing import List
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -64,7 +67,7 @@ import torch
 from ..utils import timing
 from ..utils.device import resolve as resolve_device
 from . import _kernels, raht_fp
-from .raht import _offset_neighbor_codes, _TOUCH_TABLE
+from .raht import _NBR_OFFSETS, _offset_neighbor_codes, _TOUCH_TABLE
 
 F = raht_fp.F
 QA = raht_fp.QA
@@ -349,7 +352,7 @@ def _compact(acz, acy, acx, p):
 # launches of each kernel (the plain versions add nothing); safe to
 # count from several threads
 LAUNCHES = {"fwd_blocks_int": 0, "raht_fp_truth_level": 0,
-            "raht_fp_group": 0}
+            "raht_fp_group": 0, "raht_fp_plan": 0}
 _COUNT_LOCK = threading.Lock()
 # the most channels one launch takes (csrc/raht_fp_blocks.cu: kMaxRun);
 # more go through the kernel in runs, a launch each
@@ -1079,10 +1082,270 @@ CUDA_LAUNCHERS = (_cuda_truth, _cuda_group)
 MIRROR_LAUNCHERS = (truth_level_mirror, group_mirror)
 
 
+# ---------------------------------------------------------------------
+# the planner on the card (csrc/raht_fp_plan.cu)
+# ---------------------------------------------------------------------
+
+class FramePlan(NamedTuple):
+    """A frame's plan as ``DeviceFpRaht`` holds it: ``plans``, finest
+    group first, each a dict of the keys and tensors ``plans_to_torch``
+    gives; ``offsets``, each plan's ``row_offsets``; ``pair_counts``, (nz,
+    ny, nx) a plan; ``n_roots``."""
+    plans: list
+    offsets: list
+    pair_counts: list
+    n_roots: int
+
+
+# the kernels' buffers in their launcher's pointer order (csrc/
+# raht_fp_plan.cu: Buf): name, rows ("c": a level's children, "b": its
+# parent blocks, "z", "y", "x": its pairs of that stage), width, bool.
+# Each holds every level; a name starting with "_" is the kernels' own.
+CARD_BUFS = (
+    ("pidx", "c", 1, False), ("oct", "c", 1, False), ("sw_c", "c", 1, False),
+    ("_ls", "c", 1, False),
+    ("blk_gather", "b", 8, False), ("az", "b", 4, False),
+    ("bz", "b", 4, False), ("vz", "b", 4, True), ("sz", "b", 4, False),
+    ("ay", "b", 2, False), ("by", "b", 2, False), ("vy", "b", 2, True),
+    ("sy", "b", 2, False), ("ax", "b", 1, False), ("bx", "b", 1, False),
+    ("vx", "b", 1, True), ("sx", "b", 1, False), ("sw_p", "b", 1, False),
+    ("off_z", "b", 1, False), ("off_y", "b", 1, False),
+    ("off_x", "b", 1, False), ("nbr_idx", "b", 18, False),
+    ("nbr_ok", "b", 18, True), ("cnt_p", "b", 1, False),
+    ("en_base", "b", 1, True), ("_cstart", "b", 1, False),
+    ("_pc", "b", 1, False),
+    ("flat_z", "z", 1, False), ("flat_y", "y", 1, False),
+    ("flat_x", "x", 1, False),
+)
+# the deepest tree of 63-bit Morton codes (csrc/raht_fp_plan.cu:
+# kMaxDepth), and the rows each level's view starts on a multiple of
+PLAN_MAX_DEPTH = 21
+PLAN_ROW_ALIGN = 16
+
+
+def _check_plan_codes(codes, depth):
+    if codes.dtype != _I64 or codes.dim() != 1:
+        raise TypeError(f"need (N,) int64 codes, got {codes.dtype} "
+                        f"{tuple(codes.shape)}")
+    if not 0 <= depth <= PLAN_MAX_DEPTH:
+        raise ValueError(f"depth {depth} outside [0, {PLAN_MAX_DEPTH}]")
+
+
+def _unsorted(what):
+    return ValueError(f"the planner needs distinct non-negative leaf codes "
+                      f"in increasing order ({what})")
+
+
+def _msb_ref(x):
+    """floor(log2(x)) of int64 x >= 1 (the kernel's 63 - clz)."""
+    r = torch.zeros_like(x)
+    for s in (32, 16, 8, 4, 2, 1):
+        big = (x >> s) > 0
+        r = r + big.to(_I64) * s
+        x = torch.where(big, x >> s, x)
+    return r
+
+
+def _stage_ref(w):
+    """One stage's pairs from its (mp, 2k) cell weights, with the
+    kernel's division: (a, b, valid, single source, merged weights)."""
+    w0, w1 = w[:, 0::2], w[:, 1::2]
+    ws = (w0 + w1).clamp(min=1)
+    r = fast_rcp_mirror(ws)
+    a = isqrt64_dev(fdiv_mirror(w0 << 30, ws, r))
+    b = isqrt64_dev(fdiv_mirror(w1 << 30, ws, r))
+    s = torch.where(w0 > 0, 0, torch.where(w1 > 0, 1, -1))
+    return a, b, (w0 > 0) & (w1 > 0), s, w0 + w1
+
+
+# raht.py's per-axis Morton masks and units, in (dx, dy, dz) order
+_AXES = tuple((0x1249249249249249 << (2 - a), 1 << (2 - a)) for a in range(3))
+
+
+def _neighbours_ref(pc, level_dims):
+    """``_offset_neighbor_codes`` in torch: (mp, 18) lower-bound rows of
+    the 18 masked Morton steps of the sorted codes ``pc`` and their hits.
+    (c | ~mask) is negative and (c & mask) non-negative, so no step
+    overflows int64."""
+    mp = pc.numel()
+    if mp == 0:
+        return (pc.new_zeros(0, len(_NBR_OFFSETS)),
+                torch.zeros(0, len(_NBR_OFFSETS), dtype=torch.bool,
+                            device=pc.device))
+    bits = min(3 * max(level_dims, 0), 62)
+    outside = ~((1 << bits) - 1)
+    codes, oks = [], []
+    for off in _NBR_OFFSETS:
+        c = pc
+        ok = torch.ones_like(pc, dtype=torch.bool)
+        for d, (mask, unit) in zip(off, _AXES):
+            if d > 0:
+                c = (((c | ~mask) + unit) & mask) | (c & ~mask)
+                ok = ok & ((c & outside) == 0)
+            elif d < 0:
+                ok = ok & ((c & mask) != 0)
+                c = (((c & mask) - unit) & mask) | (c & ~mask)
+        codes.append(c)
+        oks.append(ok)
+    nc = torch.stack(codes, 1)
+    idx = torch.searchsorted(pc, nc).clamp(max=mp - 1)
+    return idx, torch.stack(oks, 1) & (pc[idx] == nc)
+
+
+def build_plan_ref(codes: torch.Tensor, depth: int,
+                   t1: int = raht_fp._PRED_T1) -> FramePlan:
+    """Plain version of ``build_plan``: the passes of
+    ``csrc/raht_fp_plan.cu`` as PyTorch ops on ``codes`` (N,) int64,
+    distinct and increasing, on any device.  Leaf i > 0 first differs
+    from leaf i - 1 at bit m: it opens a node at every level g <= h =
+    min(m / 3, depth) (leaf 0 at all) and closes one butterfly pair, at
+    level m / 3 and stage m % 3 (count); ranks among those leaves give
+    every row (scatter); each parent block then takes its children's
+    weights, coefficients and neighbours (blocks)."""
+    _check_plan_codes(codes, depth)
+    n = codes.numel()
+    if n and (codes[0] < 0 or bool((codes[1:] <= codes[:-1]).any())):
+        raise _unsorted("plain version")
+    if depth == 0:
+        return FramePlan([], [], [], n)
+    m = torch.full((n,), -1, dtype=_I64, device=codes.device)
+    if n > 1:
+        m[1:] = _msb_ref(codes[1:] ^ codes[:-1])
+    h = torch.clamp(torch.div(m, 3, rounding_mode="floor"), max=depth)
+    h[:1] = depth
+    opens = [h >= g for g in range(depth + 1)]
+    first = [torch.nonzero(o).flatten() for o in opens]   # nodes' 1st leaf
+    plans, offsets, pair_counts = [], [], []
+    for g in range(depth):
+        ls, lp = first[g], first[g + 1]
+        mc, mp = ls.numel(), lp.numel()
+        upto = torch.cumsum(opens[g + 1].to(_I64), 0)   # parents opened
+        pidx = upto[ls] - 1
+        oct_ = (codes[ls] >> (3 * g)) & 7
+        p = {"pidx": pidx, "oct": oct_}
+        offs = []
+        for st, (key, width, shift) in enumerate(
+                (("flat_z", 4, 1), ("flat_y", 2, 2), ("flat_x", 1, 3))):
+            closes = (m == 3 * g + st).to(_I64)
+            offs.append((torch.cumsum(closes, 0) - closes)[lp])
+            at = torch.nonzero(closes).flatten()
+            p[key] = (upto[at] - 1) * width + \
+                (((codes[at] >> (3 * g)) & 7) >> shift)
+        w = torch.diff(ls, append=ls.new_full((1,), n))
+        gather = torch.full((mp, 8), -1, dtype=_I64, device=codes.device)
+        gather[pidx, oct_] = torch.arange(mc, dtype=_I64,
+                                          device=codes.device)
+        blk_w = torch.where(gather >= 0, w[gather.clamp(min=0)], 0)
+        p["az"], p["bz"], p["vz"], p["sz"], wz = _stage_ref(blk_w)
+        p["ay"], p["by"], p["vy"], p["sy"], wy = _stage_ref(wz)
+        ax, bx, vx, sx, wx = _stage_ref(wy)
+        p.update(ax=ax[:, 0], bx=bx[:, 0], vx=vx[:, 0], sx=sx[:, 0],
+                 blk_gather=gather, sw_c=isqrt64_dev(w << 30),
+                 sw_p=isqrt64_dev(wx[:, 0] << 30))
+        p["nbr_idx"], p["nbr_ok"] = _neighbours_ref(
+            codes[lp] >> (3 * (g + 1)), depth - 1 - g)
+        p["cnt_p"] = 1 + p["nbr_ok"].sum(dim=1)
+        p["en_base"] = p["cnt_p"] >= t1
+        plans.append(p)
+        offsets.append(tuple(offs))
+        pair_counts.append(tuple(p[k].numel()
+                                 for k in ("flat_z", "flat_y", "flat_x")))
+    return FramePlan(plans, offsets, pair_counts, first[depth].numel())
+
+
+def _row_bases(rows):
+    """Each level's first row, every level starting on a multiple of
+    ``PLAN_ROW_ALIGN`` rows, and the rows of all."""
+    padded = [-(-r // PLAN_ROW_ALIGN) * PLAN_ROW_ALIGN for r in rows]
+    ends = np.cumsum([0] + padded).tolist()
+    return ends[:-1], ends[-1]
+
+
+def _plan_kernels(codes, depth, t1):
+    """``build_plan`` on a CUDA tensor: three launches, one host read of
+    the counts."""
+    dev, n = codes.device, codes.numel()
+    nv = 4 * depth + 1
+    lib = _kernels.load()
+    stream = _kernels.stream(codes)
+    if n:
+        scratch = torch.empty(lib.raht_fp_plan_scratch_words(n, depth),
+                              dtype=_I64, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.raht_fp_plan_count_launch(codes.data_ptr(), n, depth,
+                                               scratch.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"raht_fp_plan count launch failed: CUDA "
+                               f"error {rc}")
+        with _COUNT_LOCK:
+            LAUNCHES["raht_fp_plan"] += 1
+        fault, *tot = scratch[1:2 + nv].tolist()   # the one synchronisation
+        if fault:
+            raise _unsorted("card")
+    else:
+        tot = [0] * nv
+    nodes = tot[:depth + 1]
+    pair_counts = [tuple(tot[depth + 1 + 3 * g:depth + 4 + 3 * g])
+                   for g in range(depth)]
+    rows = {"c": nodes[:depth], "b": nodes[1:]}
+    rows.update({k: [pc[s] for pc in pair_counts]
+                 for s, k in enumerate("zyx")})
+    bases = {k: _row_bases(r) for k, r in rows.items()}
+    bufs = [torch.empty((bases[kind][1], w) if w > 1 else bases[kind][1],
+                        dtype=torch.bool if flag else _I64, device=dev)
+            for _, kind, w, flag in CARD_BUFS]
+    if n:
+        pad = PLAN_MAX_DEPTH - depth
+        blk0 = np.cumsum([0] + nodes[1:]).tolist()
+        layout = (nodes + [0] * pad
+                  + [x for k in "cbzyx" for x in bases[k][0] + [0] * pad]
+                  + blk0 + [blk0[-1]] * pad)
+        with torch.cuda.device(dev):
+            rc = lib.raht_fp_plan_build_launch(
+                codes.data_ptr(), n, depth, t1, scratch.data_ptr(),
+                _ptrs(bufs), (ctypes.c_int64 * len(layout))(*layout), stream)
+        if rc != 0:
+            raise RuntimeError(f"raht_fp_plan build launch failed: CUDA "
+                               f"error {rc}")
+        with _COUNT_LOCK:
+            LAUNCHES["raht_fp_plan"] += 2
+    plans, offsets = [], []
+    for g in range(depth):
+        p = {}
+        for (name, kind, _, _), buf in zip(CARD_BUFS, bufs):
+            if name[0] != "_":
+                base = bases[kind][0][g]
+                p[name] = buf[base:base + rows[kind][g]]
+        offsets.append((p.pop("off_z"), p.pop("off_y"), p.pop("off_x")))
+        plans.append(p)
+    return FramePlan(plans, offsets, pair_counts, nodes[depth])
+
+
+def build_plan(codes: torch.Tensor, depth: int,
+               t1: int = raht_fp._PRED_T1) -> FramePlan:
+    """The frame's plan from its leaf codes ``codes`` (N,) int64, distinct
+    and increasing, at ``depth`` <= 21: every tensor equal to
+    ``plans_to_torch(build_fp_plan(...))`` and ``row_offsets``, and the
+    counts ``DeviceFpRaht`` needs, on the codes' device.  A CUDA tensor
+    launches the three passes of ``csrc/raht_fp_plan.cu`` (counting, one
+    host read of the counts, scatter, blocks; every tensor 16-byte
+    aligned) or raises; a CPU tensor runs ``build_plan_ref``.  Codes out
+    of order, repeated or negative raise ``ValueError``."""
+    if not _kernels.on_card(codes):
+        return build_plan_ref(codes, depth, t1)
+    _check_plan_codes(codes, depth)
+    if depth == 0:
+        return FramePlan([], [], [], codes.numel())
+    return _plan_kernels(codes.contiguous(), depth, t1)
+
+
 class DeviceFpRaht:
-    """Per-frame device codec state: the plan is uploaded once, then
+    """Per-frame device codec state: the frame's plan, then
     encode()/decode() run the closed loop on ``device`` (default: the
-    current CUDA device; ``NoDeviceError`` without one)."""
+    current CUDA device; ``NoDeviceError`` without one).  On a CUDA
+    device the plan is built there from the uploaded codes
+    (``build_plan``'s kernels); elsewhere ``build_fp_plan`` builds it on
+    the host and ``plans_to_torch`` carries it over."""
 
     def __init__(self, leaf_codes: np.ndarray, depth: int, steps_q16,
                  thresholds=(raht_fp._PRED_T0, raht_fp._PRED_T1),
@@ -1095,15 +1358,25 @@ class DeviceFpRaht:
         self.weights = tuple(int(w) for w in weights)
         self.steps = torch.as_tensor(np.asarray(steps_q16, dtype=np.int64),
                                      device=self.device)
-        with timing.span("raht.plan.build"):
-            host_plans = build_fp_plan(leaf_codes, depth, thresholds)
-        with timing.span("raht.plan.upload"):
-            self.plans = plans_to_torch(host_plans, self.device)
-            self.offsets = [row_offsets(p) for p in self.plans]
-        self.pair_counts = [(hp.flat_z.size, hp.flat_y.size,
-                             hp.flat_x.size) for hp in host_plans]
-        self.n_roots = host_plans[-1].mp if host_plans else \
-            leaf_codes.shape[0]
+        if self.device.type == "cuda":
+            with timing.span("raht.plan.upload"):
+                codes = torch.as_tensor(np.asarray(leaf_codes, np.int64),
+                                        device=self.device)
+            with timing.span("raht.plan.build"):
+                plan = build_plan(codes, depth, self.t1)
+            timing.count("raht.plan.device_levels", depth)
+        else:
+            with timing.span("raht.plan.build"):
+                host_plans = build_fp_plan(leaf_codes, depth, thresholds)
+            with timing.span("raht.plan.upload"):
+                plans = plans_to_torch(host_plans, self.device)
+                offsets = [row_offsets(p) for p in plans]
+            plan = FramePlan(
+                plans, offsets,
+                [(hp.flat_z.size, hp.flat_y.size, hp.flat_x.size)
+                 for hp in host_plans],
+                host_plans[-1].mp if host_plans else leaf_codes.shape[0])
+        self.plans, self.offsets, self.pair_counts, self.n_roots = plan
 
     def _group_kw(self, gi):
         return dict(t0=self.t0, t1=self.t1, weights=self.weights,

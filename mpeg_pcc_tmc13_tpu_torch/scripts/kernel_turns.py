@@ -2,12 +2,14 @@
 CUDA card, for comparing two versions of them in turns.
 
     python mpeg_pcc_tmc13_tpu_torch/scripts/kernel_turns.py [--root DIR]
-        [--points N] [--depth D] [--reps R]
+        [--points N] [--depth D] [--reps R] [--codes FILE.npy]
 
 On the bench's cloud (``make_surface_cloud(1_000_000, 11)``, 889,682
-unique codes, colours from ``_colors_for``, qp 22) it times, each as a
-CUDA graph captured once and replayed ``--reps`` times between CUDA
-events after a warm-up (so host issue drops out):
+unique codes, colours from ``_colors_for``, qp 22), or with ``--codes``
+on the sorted unique Morton codes saved in an ``.npy`` file (a frame of
+any source, at ``--depth``), it times, each as a CUDA graph captured
+once and replayed ``--reps`` times between CUDA events after a warm-up
+(so host issue drops out):
 
 * ``raht_fp_group``: ``DeviceFpRaht``'s 11 encode groups and its 11
   decode groups as the card loop runs them (``_enc_group_kernels``,
@@ -19,7 +21,9 @@ events after a warm-up (so host issue drops out):
   version has it, one link of the level chain alone
   (``expand_chain_probe``: an empty launch on the level launches' grid);
 * ``raht_fp_truth_level`` (a kernel that neither version changes, as a
-  control): the 11 truth levels.
+  control): the 11 truth levels;
+* where the imported version has it, the planner ``build_plan`` alone
+  (``plan_times``: not a graph, it reads its counts on the host).
 
 Every kernel's output is checked against its plain version first.
 ``--root`` imports the package from another checkout (for example the
@@ -71,6 +75,89 @@ def largest_encode_group(dv, truth):
     return recorded[-1]
 
 
+def _wall_ms(fn, reps):
+    """Median host ms of ``fn()`` between two synchronisations."""
+    import statistics
+    import time
+
+    import torch
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(ts)
+
+
+def plan_times(uniq, depth, dev, reps):
+    """The planner alone on ``uniq``: ``build_plan``'s plan checked tensor
+    for tensor against the host's ``build_fp_plan`` + ``plans_to_torch``
+    and ``row_offsets``; then its wall (codes on the card, counts read,
+    last kernel done), its three kernels' device ms (profiler), its byte
+    bound (the plan's tensors written once and the codes read, at 3.35
+    TB/s) and launches, the codes' upload, the plain version
+    ``build_plan_ref`` on the card, and the host planner with its
+    upload."""
+    import torch
+
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp_device as fpd
+    codes = torch.as_tensor(uniq, device=dev)
+    got = fpd.build_plan(codes, depth)
+    host = fpd.build_fp_plan(uniq, depth)
+    spec = fpd.plans_to_torch(host, dev)
+    if got.n_roots != host[-1].mp or got.pair_counts != [
+            (h.flat_z.size, h.flat_y.size, h.flat_x.size) for h in host]:
+        raise AssertionError("build_plan's counts differ from the host's")
+    for p, offs, q in zip(got.plans, got.offsets, spec):
+        _same("build_plan", tuple(p[k] for k in q) + offs,
+              tuple(q.values()) + fpd.row_offsets(q))
+    plan_bytes = codes.numel() * 8 + sum(
+        t.numel() * t.element_size()
+        for p, offs in zip(got.plans, got.offsets)
+        for t in list(p.values()) + list(offs))
+    out = {"plan_bytes": plan_bytes,
+           "plan_bound_ms": plan_bytes / 3.35e9}
+    fpd.reset_launch_counts()
+    out["plan_ms"] = _wall_ms(lambda: fpd.build_plan(codes, depth), reps)
+    out["plan_launches"] = fpd.LAUNCHES["raht_fp_plan"] / reps
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fpd.build_plan(codes, depth)
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        for name in ("plan_count", "plan_scatter", "plan_blocks"):
+            if f"{name}_kernel" in ev.key:
+                us = getattr(ev, "device_time_total",
+                             getattr(ev, "cuda_time_total", 0.0))
+                out[f"{name}_ms"] = us / 1e3 / reps
+    out["plan_kernels_ms"] = sum(out.get(f"{n}_ms", 0.0) for n in (
+        "plan_count", "plan_scatter", "plan_blocks"))
+    out["plan_upload_ms"] = _wall_ms(
+        lambda: torch.as_tensor(uniq, device=dev), reps)
+    out["plain_plan_ms"] = _wall_ms(
+        lambda: fpd.build_plan_ref(codes, depth), max(1, reps // 4))
+    out["host_plan_ms"] = _wall_ms(lambda: fpd.build_fp_plan(uniq, depth),
+                                   3)
+    out["host_upload_ms"] = _wall_ms(
+        lambda: [fpd.row_offsets(p) for p in fpd.plans_to_torch(host, dev)],
+        3)
+    return out
+
+
+def _cloud(path, points, depth):
+    """The codes: the bench cloud of ``points`` at ``depth``, or those
+    saved at ``path`` (sorted, unique, int64)."""
+    import numpy as np
+
+    from mpeg_pcc_tmc13_tpu_torch.runtime import roundtrip as rt
+    if path is None:
+        return rt.sorted_unique_codes(rt.make_surface_cloud(points, depth))
+    return np.load(path).astype(np.int64)
+
+
 def _same(name, got, want):
     import torch
     got = got if isinstance(got, tuple) else (got,)
@@ -87,6 +174,9 @@ def main(argv=None) -> int:
     ap.add_argument("--points", type=int, default=1_000_000)
     ap.add_argument("--depth", type=int, default=11)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--codes", default=None,
+                    help="an .npy file of sorted unique Morton codes at "
+                    "--depth, used in place of the bench cloud")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
 
@@ -102,15 +192,16 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda:0")
     depth, reps = args.depth, args.reps
-    uniq = rt.sorted_unique_codes(rt.make_surface_cloud(args.points, depth))
+    uniq = _cloud(args.codes, args.points, depth)
     colors = rt._colors_for(uniq, depth)
     n = uniq.size
     out = {"points": int(n), "depth": depth, "reps": reps,
-           "root": Path(args.root).resolve().name}
+           "root": Path(args.root).resolve().name,
+           "cloud": Path(args.codes).stem if args.codes else "bench"}
 
     # the expansion
     codes = torch.as_tensor(uniq, device=dev)
-    cap = max(64, int(n * 2.3)) & ~63
+    cap = -(-n * depth // 64) * 64        # every level's nodes fit
     hdr = octree.encode_occ_u8_hdr_ref(codes, depth, cap)
     counts = hdr[:4 * depth].view(torch.int32)
     total = int(counts.to(torch.int64).sum())
@@ -170,6 +261,8 @@ def main(argv=None) -> int:
     out["largest_group_blocks"] = int(a[2])
     out["largest_group_ms"] = _graph_ms(lambda: fpd._cuda_group(*a, **kw),
                                         reps)
+    if hasattr(fpd, "build_plan"):
+        out.update(plan_times(uniq, depth, dev, reps))
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -468,6 +468,7 @@ def test_device_fp_raht_on_cpu_launches_nothing(monkeypatch):
     lambda t: tops.decode_expand_stream(t.to(torch.uint8), t, 3, 8),
     lambda t: tops._expand_level(t, t, 8),
     lambda t: tfp._truth_level(t[:, None], {}),
+    lambda t: tfp.build_plan(t, 3),
 ])
 def test_other_devices_raise(fn):
     with pytest.raises(ValueError, match="no kernel for device"):
@@ -498,6 +499,7 @@ def test_cuda_tensor_launches_the_kernels():
     assert tops.LAUNCHES["octree_occ_u8"] == 2
     assert tfp.LAUNCHES["raht_fp_truth_level"] == depth
     assert tfp.LAUNCHES["raht_fp_group"] == depth
+    assert tfp.LAUNCHES["raht_fp_plan"] == 3
 
 
 # ---- the redesigned kernels: exact divisions, staged tiles, real rows ----

@@ -155,6 +155,22 @@ def test_planner_traced():
         <= sink.spans["decode.raht.plan.build"]
 
 
+@pytest.mark.cuda
+def test_card_planner_traced():
+    """On a card the plan is built there: the same two spans, a count of
+    the levels built on the card, and no host search."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the planner's kernels have no CPU "
+                    "form")
+    codes = _codes()
+    sink = _sink()
+    with timing.tracing(sink, "encode"):
+        tfp.DeviceFpRaht(codes, DEPTH, STEPS, device="cuda")
+    assert set(sink.spans) == {"encode.raht.plan.build",
+                               "encode.raht.plan.upload"}
+    assert sink.counters == {"encode.raht.plan.device_levels": DEPTH}
+
+
 def _whole_frame(codes, vals):
     payload, _ = _encode(codes, num_slices=2, cap_factor=0.5)
     got, _ = _decode(payload, 2, -(-codes.size // 2))
