@@ -2,10 +2,12 @@
 with one guarantee of the configuration broken, must come out not
 correct.
 
-- attributes (``*.intra_raht``): the fixed-point closed loop with every
-  floor division of values taken through a float32 quotient, the step
-  that would tempt a kernel's divisions (the group kernel divides
-  exactly: an FP64 quotient and one remainder step);
+- attributes (where the mix codes them): the controls of the
+  configuration's check (its ``controls``); for ``checks/raht_fp.py``
+  the fixed-point closed loop with every floor division of values taken
+  through a float32 quotient, the step that would tempt a kernel's
+  divisions (the group kernel divides exactly: an FP64 quotient and one
+  remainder step);
 - geometry (every cell): a decoder that loses the last octree level
   (each position halved and doubled back), lossy where the
   configuration states lossless.
@@ -28,13 +30,7 @@ import time
 import numpy as np
 
 from . import check, spec
-from .frames import make_frames, step_q16
-
-
-def float32_floordiv(a, b):
-    """Floor of a float32 quotient, back to int64."""
-    q = np.asarray(a, np.float32) / np.asarray(b, np.float32)
-    return np.floor(q).astype(np.int64)
+from .frames import make_frames
 
 
 def lossy_geometry(codes: np.ndarray) -> np.ndarray:
@@ -44,22 +40,19 @@ def lossy_geometry(codes: np.ndarray) -> np.ndarray:
 
 def readings(cell: spec.Cell, seed: int) -> dict:
     cfg = cell.config
-    nc, depth = int(cfg["channels"]), int(cfg["bits"])
-    frames = make_frames(cfg, seed, channels=nc)
+    frames = make_frames(cfg, seed, channels=int(cfg["channels"]))
     out = {"seed": seed, "workload": cell.name}
     out["control_geometry"] = {"geom_codes_wrong": sum(
         check.geometry_wrong(lossy_geometry(fr.codes), fr.codes)
         for fr in frames)}
     if cell.mix.attributes:
-        step = step_q16(int(cfg["qp"]))
+        chk = cell.check()
         fr = frames[check.sample_frame(seed, len(frames))]
         t0 = time.perf_counter()
-        ref = check.reference_attributes(fr.codes, fr.values, depth, step)
+        ref = chk.reference(fr, cfg)
         out["reference_s"] = time.perf_counter() - t0
-        q, recon, decoded = check.reference_attributes(
-            fr.codes, fr.values, depth, step, div=float32_floordiv)
-        out["control_float32"] = check.attribute_numbers(
-            [{"q": q, "recon": recon, "decoded": decoded}], ref)
+        for name, kept in chk.controls(fr, cfg).items():
+            out[name] = chk.numbers([kept], ref)
     return out
 
 

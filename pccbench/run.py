@@ -3,14 +3,16 @@
     python3 -m pccbench.run --workload <name> --seed <n> --seconds <s>
         --trace <0|1>
 
-Set-up loads the port (its CUDA kernels and native library, built into
-``build/`` of the checkout by the first run there), makes the cell's
-frames from the seed and codes the largest of them once, untimed; it
-prints its phases on standard error.  The window codes frames one at a
-time, cycling through them, as the cell's traffic mix says
-(``window.py``): the encode side, then the decode side of its streams
-(``codec.py``).  After the window, the outputs are judged against the
-plain reference (``check.py``).
+Set-up makes the cell's frames from the seed, loads the codec that
+the configuration names (``codecs/<codec>.py``, which loads the port:
+its CUDA kernels and native library, built into ``build/`` of the
+checkout by the first run there) on the cell's ``chips`` devices, and
+codes the largest frame once, untimed; it prints its phases on standard
+error.  The window codes frames one at a time, cycling through them, as
+the cell's traffic mix says (``window.py``): the encode side, then the
+decode side of its streams.  After the window, the outputs are judged
+against the plain reference: the geometry by ``check.py``, the
+attributes by the configuration's check (``checks/<check>.py``).
 
 The last line of standard output is one JSON object: ``correct``,
 ``attempted`` (frames coded in the window), ``failed`` (frames whose
@@ -38,7 +40,8 @@ from pathlib import Path
 T_START = time.perf_counter()
 
 from . import check, spec  # noqa: E402
-from .frames import make_frames, step_q16  # noqa: E402
+from .codec import device_description  # noqa: E402
+from .frames import make_frames  # noqa: E402
 from .spans import Clock  # noqa: E402
 from .stats import Run  # noqa: E402
 from .trace import Trace  # noqa: E402
@@ -71,22 +74,34 @@ def _profiler(traced: bool, cuda: bool):
     return torch.profiler.profile(activities=acts)
 
 
-SPAN_NAMES = ("window", "encode", "decode", "encode.geom", "decode.geom",
-              "encode.attr_plan", "decode.attr_plan", "encode.attr_loop",
-              "decode.attr_loop")
+# the window's and the sides' spans; a codec adds its own
+BASE_SPANS = ("window", "encode", "decode")
+
+
+def span_names(codec_module) -> tuple:
+    """The spans a traced run keeps on the device's timeline."""
+    return BASE_SPANS + tuple(getattr(codec_module, "SPAN_NAMES", ()))
+
+
+def cell_devices(backend: str, chips: int) -> list:
+    """``chips`` devices: ``cuda:0`` ... ``cuda:{chips-1}``, or as many
+    host entries on the CPU."""
+    import torch
+    if backend == "cuda":
+        return [torch.device("cuda", i) for i in range(chips)]
+    return [torch.device(backend)] * chips
 
 
 def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
-             device, t_start: float = T_START) -> dict:
-    """The result line of one run of ``cell`` on ``device``."""
+             backend: str, t_start: float = T_START) -> dict:
+    """The result line of one run of ``cell`` on ``backend``'s devices
+    (``"cuda"``, or ``"cpu"`` for the tests)."""
     import torch
 
-    from .codec import PortCodec, device_description
-
     cfg, mix = cell.config, cell.mix
-    depth, nc = int(cfg["bits"]), int(cfg["channels"])
-    step = step_q16(int(cfg["qp"]))
-    cuda = torch.device(device).type == "cuda"
+    nc = int(cfg["channels"])
+    devices = cell_devices(backend, cell.chips)
+    cuda = devices[0].type == "cuda"
 
     phases = {"imports": time.perf_counter() - t_start}
     t = time.perf_counter()
@@ -94,10 +109,11 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     phases["frames"] = time.perf_counter() - t
     t = time.perf_counter()
     clock = Clock(traced)
-    codec = PortCodec(depth, [step] * nc, nc, mix.attributes, device, clock)
+    codec_module, chk = cell.codec(), cell.check()
+    codec = codec_module.make(cfg, mix, devices, clock)
     phases["port"] = time.perf_counter() - t
     sample = check.sample_frame(seed, len(frames))
-    window = Window(codec, frames, mix, clock, sample)
+    window = Window(codec, frames, mix, clock, sample, chk.outputs)
     t = time.perf_counter()
     window.warm()
     phases["warm"] = time.perf_counter() - t
@@ -114,13 +130,13 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     if found:
         raise SystemExit(f"loaded after the window: {', '.join(found)}")
 
-    desc = device_description(device, cell.chips)
+    desc = device_description(devices)
     trace = None
     if traced:
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "trace.json")
             prof.export_chrome_trace(path)
-            trace = Trace.from_chrome(path, SPAN_NAMES)
+            trace = Trace.from_chrome(path, span_names(codec_module))
         del prof
         busy_s, win_s = trace.busy("window")
         desc["busy_s"] = busy_s
@@ -139,23 +155,25 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
 
     # correctness, once the window has closed and the program is freed
     numbers = {"geom_codes_wrong": sum(r.geom_wrong for r in records)}
+    limits = dict(check.LIMITS)
     failed = {i for i, r in enumerate(records) if r.geom_wrong}
     if mix.attributes:
         fr = frames[sample]
-        ref = check.reference_attributes(fr.codes, fr.values, depth, step)
+        ref = chk.reference(fr, cfg)
         codings = [i for i, r in enumerate(records) if r.frame == sample]
         for i, out in zip(codings, kept):
-            if not check.passes(check.attribute_numbers([out], ref)):
+            if not check.passes(chk.numbers([out], ref), chk.LIMITS):
                 failed.add(i)
-        numbers.update(check.attribute_numbers(kept, ref))
-    correct = bool(records) and check.passes(numbers)
+        numbers.update(chk.numbers(kept, ref))
+        limits.update(chk.LIMITS)
+    correct = bool(records) and check.passes(numbers, limits)
 
     result = {"correct": correct, "attempted": len(records),
               "failed": len(failed), "metrics": metrics, "device": desc}
     if traced:
         result["breakdown"] = {"device_ops": trace.device_ops(),
                                "idle_gaps": trace.idle_gaps("window")}
-    result["checks"] = {k: {"value": v, "limit": check.LIMITS[k]}
+    result["checks"] = {k: {"value": v, "limit": limits[k]}
                         for k, v in numbers.items()}
     return result
 
@@ -181,7 +199,7 @@ def main(argv=None) -> int:
         return 1
     torch.cuda.set_device(0)
     result = run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                      torch.device("cuda", 0))
+                      "cuda")
     found = forbidden_modules()
     if found:
         print(f"loaded: {', '.join(found)}", file=sys.stderr)

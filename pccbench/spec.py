@@ -10,7 +10,18 @@ per-layer metric sits in files of its own, found by name:
   one general loop of ``window.py`` reads (which streams are coded,
   which sides are timed, closed loop or arrivals at a rate);
 - ``pccbench/metrics/<metric>.py``: a reader with ``read(run)`` that
-  returns the metric's value, or None where it finds nothing to read.
+  returns the metric's value, or None where it finds nothing to read;
+- ``pccbench/codecs/<codec>.py``: the system under test, named by the
+  configuration's ``"codec"`` (``octree_raht_fp`` where it names none);
+  ``make(cfg, mix, devices, clock)`` returns an object with
+  ``encode(codes, values)`` and ``decode(geom, attr, points)``, and
+  ``SPAN_NAMES`` lists the spans it opens beside the window's and the
+  sides' (``codec.py`` has the interface);
+- ``pccbench/checks/<check>.py``: how the attribute outputs are judged,
+  named by the configuration's ``"check"`` (``raht_fp`` where it names
+  none): ``LIMITS``, ``outputs``, ``reference``, ``numbers`` and the
+  controls' ``controls`` (``check.py`` has the geometry's, which every
+  cell shares).
 
 A cell added to ``BENCHMARK.json`` with its files runs with no edit here.
 """
@@ -27,6 +38,19 @@ from .window import Mix
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 ROOT = PACKAGE_DIR.parent
+DEFAULT_CODEC = "octree_raht_fp"
+DEFAULT_CHECK = "raht_fp"
+
+
+def load_file(root: Path, kind: str, name: str):
+    """The module ``pccbench/<kind>/<name>.py`` under ``root``, loaded by
+    file, so that a root of its own (a test's) can hold its own."""
+    path = Path(root) / "pccbench" / kind / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(
+        f"pccbench_{kind}_{name.replace('.', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @dataclass
@@ -54,13 +78,18 @@ class Cell:
     root: Path
 
     def reader(self, metric: str) -> Callable:
-        """The per-layer metric's ``read`` function, loaded by file."""
-        path = self.root / "pccbench" / "metrics" / f"{metric}.py"
-        spec = importlib.util.spec_from_file_location(
-            f"pccbench_metric_{metric.replace('.', '_')}", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        """The metric's ``read`` function, loaded by file."""
+        return load_file(self.root, "metrics", metric).read
+
+    def codec(self):
+        """The module of the configuration's codec."""
+        return load_file(self.root, "codecs",
+                         self.config.get("codec", DEFAULT_CODEC))
+
+    def check(self):
+        """The module of the configuration's attribute check."""
+        return load_file(self.root, "checks",
+                         self.config.get("check", DEFAULT_CHECK))
 
 
 def _metrics(entries) -> List[Metric]:

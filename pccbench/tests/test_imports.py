@@ -11,7 +11,7 @@ import pytest
 PKG = Path(__file__).resolve().parents[1]
 NEVER = {"jax", "jaxlib", "flax", "mpeg_pcc_tmc13_tpu", "bench", "chip_smoke"}
 PORT = "mpeg_pcc_tmc13_tpu_torch"
-YARDSTICK = ("reference", "gen", "roofline")
+YARDSTICK = ("reference", "gen", "roofline", "checks")
 
 
 def top_level_imports(path: Path):
@@ -50,5 +50,6 @@ def test_names_compared_whole():
 def test_only_codec_imports_the_port():
     users = {p.relative_to(PKG).as_posix() for p in SOURCES
              if PORT in set(top_level_imports(p))}
-    assert users <= {"codec.py", "tests/test_reference.py",
-                     "tests/test_run_cpu.py"}, users
+    tests = {"tests/test_reference.py", "tests/test_run_cpu.py",
+             "tests/test_codecs.py"}
+    assert all(u.startswith("codecs/") for u in users - tests), users

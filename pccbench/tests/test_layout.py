@@ -128,3 +128,19 @@ def test_every_metric_has_a_reader(name):
     path = ROOT / "pccbench" / "metrics" / f"{name}.py"
     assert path.is_file()
     assert "def read(run)" in path.read_text()
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
+def test_every_configuration_finds_its_codec_and_check(config):
+    """A configuration names its codec and check, or takes the
+    defaults; each is a file with the interface ``run.py`` calls."""
+    from pccbench import spec
+    cell = spec.load_cell(next(w["name"] for w in BENCH["workloads"]
+                               if w["config"] == config), root=ROOT)
+    codec = cell.codec()
+    assert callable(codec.make)
+    assert all(NAME.match(n) for n in getattr(codec, "SPAN_NAMES", ()))
+    chk = cell.check()
+    assert all(callable(getattr(chk, f)) for f in
+               ("outputs", "reference", "numbers", "controls"))
+    assert chk.LIMITS and all(NAME.match(k) for k in chk.LIMITS)

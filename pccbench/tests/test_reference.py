@@ -7,7 +7,7 @@ body generator."""
 import numpy as np
 import pytest
 
-from pccbench import check
+from pccbench.checks import raht_fp as check
 from pccbench.frames import make_frames, step_q16
 from pccbench.gen import clouds
 from pccbench.reference import raht_fp as ref
@@ -91,7 +91,7 @@ def test_reference_is_the_device_loop_on_cpu():
 
 def test_float32_division_control_departs():
     """The control's quotient really is coarser than the exact one."""
-    from pccbench.control import float32_floordiv
+    from pccbench.checks.raht_fp import float32_floordiv
     a = np.array([(1 << 40) + 12345], np.int64)
     b = np.array([3], np.int64)
     assert ref.floordiv(a, b)[0] != float32_floordiv(a, b)[0]

@@ -129,7 +129,7 @@ def test_open_loop_keeps_to_its_arrivals(tiny_root):
     from pccbench.frames import make_frames
     frames = make_frames(cell.config, 3, channels=1)[:1]
     mix = Mix.from_data({"attributes": False, "arrival_hz": 40})
-    w = Window(Instant(), frames, mix, Clock(False), 0)
+    w = Window(Instant(), frames, mix, Clock(False), 0, None)
     records, _ = w.run(0.5)
     assert len(records) == 20
     for k, r in enumerate(records):
@@ -239,10 +239,11 @@ def test_fault_makes_a_player_incorrect(tiny_root, monkeypatch, fault):
                                   "lidar_hdl64.intra_raht",
                                   "lidar_hdl64.geom_only"])
 def test_controls_fail(tiny_root, cell):
-    got = control.readings(spec.load_cell(cell, root=tiny_root), SEED)
-    assert not check.passes(got["control_geometry"])
+    c = spec.load_cell(cell, root=tiny_root)
+    got = control.readings(c, SEED)
+    assert not check.passes(got["control_geometry"], check.LIMITS)
     if "intra_raht" in cell:
-        assert not check.passes(got["control_float32"])
+        assert not check.passes(got["control_float32"], c.check().LIMITS)
 
 
 def test_no_card_no_result(capsys):

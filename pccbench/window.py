@@ -17,16 +17,15 @@ coded frame gets a ``Record`` (``spans.py``) with its spans, counters,
 payload, times of arrival and completion, and the number of its decoded
 leaf codes that differ from its own, counted outside the sides' spans.
 Of the frame that ``check.sample_frame`` drew, each coding's attribute
-outputs are kept for the reference to judge after the window.
+outputs, as the configuration's check takes them (its ``outputs``), are
+kept for the reference to judge after the window.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
-
-import numpy as np
+from typing import Callable, List, Optional, Tuple
 
 from . import check
 from .spans import Clock, Record
@@ -60,18 +59,15 @@ class Mix:
         return "encode" in self.sides
 
 
-def attribute_outputs(e, values) -> dict:
-    """What the reference judges of one coding: q rows, the encoder's
-    reconstruction and the decoded values, as host arrays."""
-    return {"q": np.concatenate(e.q_rows, axis=0) if e.q_rows else None,
-            "recon": None if e.recon is None else e.recon.cpu().numpy(),
-            "decoded": values}
-
-
 class Window:
-    def __init__(self, codec, frames, mix: Mix, clock: Clock, sample: int):
+    def __init__(self, codec, frames, mix: Mix, clock: Clock, sample: int,
+                 outputs: Optional[Callable]):
+        """``outputs(encoded, values)``: what the check keeps of a coding
+        of the sampled frame (unused where the mix codes no
+        attributes)."""
         self.codec, self.frames, self.mix = codec, frames, mix
         self.clock, self.sample = clock, sample
+        self.outputs = outputs
         self.streams = None
 
     def warm(self) -> None:
@@ -140,5 +136,5 @@ class Window:
         rec.geom_wrong = check.geometry_wrong(codes, fr.codes)
         out = None
         if self.mix.attributes and f == self.sample:
-            out = attribute_outputs(e, values)
+            out = self.outputs(e, values)
         return rec, out
