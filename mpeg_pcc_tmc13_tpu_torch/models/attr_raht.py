@@ -21,7 +21,7 @@ from ..bitstream.hls import (AttributeDescription,
                                               AttributeParameterSet)
 from ..ops import raht as raht_ops
 
-from ..utils import morton
+from ..utils import morton, timing
 from .attributes import AttributeContexts, RES_CTX_SIZE, ZRUN_CTX_SIZE, \
     _RES_PREFIX_MAX, _RES_K
 
@@ -195,6 +195,16 @@ def _native_fastpath_ok(coder, aps, abh, haar, ncomp, steps) -> bool:
     return all(1 <= s < (1 << 31) for s in steps)
 
 
+def _open_counters():
+    """A brick's counters at 0, so that a traced run records all three
+    whichever path codes the brick: ``attr.entropy_s`` (seconds in the
+    residual and zrow coder), ``attr.lcp_layers`` (layers whose
+    last-component prediction coefficient is non-zero) and
+    ``attr.native_bricks`` (bricks coded by native/attr_raht.cc)."""
+    for name in ("attr.entropy_s", "attr.lcp_layers", "attr.native_bricks"):
+        timing.count(name, 0)
+
+
 def _ref_pyramid(ref, aps, depth, haar):
     if ref is None or not aps.inter_prediction_enabled \
             or not aps.raht_prediction_enabled or not len(ref[0]):
@@ -208,6 +218,7 @@ def _ref_pyramid(ref, aps, depth, haar):
 def encode(values: np.ndarray, positions: np.ndarray,
            aps: AttributeParameterSet, desc: AttributeDescription,
            ctx: AttributeContexts, ref=None, abh=None) -> bytes:
+    _open_counters()
     codes = morton.encode(positions.astype(np.int64))
     uniq, inv, keep = _unique_and_inverse(codes)
     vals = np.asarray(values)
@@ -253,7 +264,8 @@ def encode(values: np.ndarray, positions: np.ndarray,
         from ..ops import raht_fp
 
         def emit(q, tag):
-            enc.zrow_residuals(ctx.zrow, q.astype(np.int32))
+            with timing.counted("attr.entropy_s"):
+                enc.zrow_residuals(ctx.zrow, q.astype(np.int32))
 
         if _native_fastpath_ok(enc, aps, abh, haar, ncomp, steps) \
                 and hasattr(entropy._LIB, "raht_encode_fp"):
@@ -270,6 +282,7 @@ def encode(values: np.ndarray, positions: np.ndarray,
                 entropy._ptr(steps_c, _ct.c_int32),
                 t0, t1, ws, wf, we)
             if rc == 0:
+                timing.count("attr.native_bricks", 1)
                 return enc.get_bytes()
         raht_fp.forward_predicted_fp(
             uniq, uvals, depth, step_at,
@@ -295,6 +308,7 @@ def encode(values: np.ndarray, positions: np.ndarray,
                 entropy._ptr(steps_c, _ct.c_int32),
                 t0, t1, ws, wf, we)
             if rc == 0:
+                timing.count("attr.native_bricks", 1)
                 return enc.get_bytes()
 
         def quant(arr, tag):
@@ -311,7 +325,8 @@ def encode(values: np.ndarray, positions: np.ndarray,
                     arr[:, 2] - _lcp_pred(k, dq1, haar),
                     step_at(2, tag))
             q = np.stack(cols, axis=1)
-            enc.zrow_residuals(ctx.zrow, q.astype(np.int32))
+            with timing.counted("attr.entropy_s"):
+                enc.zrow_residuals(ctx.zrow, q.astype(np.int32))
             return q
 
         def dequant(q, tag):
@@ -328,6 +343,9 @@ def encode(values: np.ndarray, positions: np.ndarray,
             thresholds=(aps.raht_pred_threshold0,
                         aps.raht_pred_threshold1),
             weights=aps.raht_pred_weights)
+        if lcp_on:
+            timing.count("attr.lcp_layers",
+                         sum(k != 0 for k in abh.lcp_coeffs))
         return enc.get_bytes()
 
     coeffs = raht_ops.forward(uniq, uvals, depth, integer_haar=haar)
@@ -339,13 +357,15 @@ def encode(values: np.ndarray, positions: np.ndarray,
             coeffs[1:][flag] = 0
     q = np.stack([_quantize(coeffs[:, c], steps[c])
                   for c in range(ncomp)], axis=1)
-    enc.zrow_residuals(ctx.zrow, q.astype(np.int32))
+    with timing.counted("attr.entropy_s"):
+        enc.zrow_residuals(ctx.zrow, q.astype(np.int32))
     return enc.get_bytes()
 
 
 def decode(data: bytes, positions: np.ndarray,
            aps: AttributeParameterSet, desc: AttributeDescription,
            ctx: AttributeContexts, ref=None, abh=None) -> np.ndarray:
+    _open_counters()
     codes = morton.encode(positions.astype(np.int64))
     uniq, inv, keep = _unique_and_inverse(codes)
     depth = _tree_depth(uniq)
@@ -380,12 +400,14 @@ def decode(data: bytes, positions: np.ndarray,
                 entropy._ptr(steps_c, _ct.c_int32),
                 t0, t1, ws, wf, we)
             if rc == 0:
+                timing.count("attr.native_bricks", 1)
                 out = out_c[inv]
                 return out[:, 0] if ncomp == 1 else out
 
         def read_q_fp(count, tag):
-            return dec.zrow_residuals(ctx.zrow, count,
-                                      ncomp).astype(np.int64)
+            with timing.counted("attr.entropy_s"):
+                return dec.zrow_residuals(ctx.zrow, count,
+                                          ncomp).astype(np.int64)
 
         vals = raht_fp.inverse_predicted_fp(
             uniq, depth, read_q_fp, step_at, ncomp,
@@ -412,12 +434,14 @@ def decode(data: bytes, positions: np.ndarray,
                 entropy._ptr(steps_c, _ct.c_int32),
                 t0, t1, ws, wf, we)
             if rc == 0:
+                timing.count("attr.native_bricks", 1)
                 out = out_c[inv]
                 return out[:, 0] if ncomp == 1 else out
 
         def read_q(count, tag):
-            return dec.zrow_residuals(ctx.zrow, count,
-                                      ncomp).astype(np.int64)
+            with timing.counted("attr.entropy_s"):
+                return dec.zrow_residuals(ctx.zrow, count,
+                                          ncomp).astype(np.int64)
 
         def dequant(q, tag):
             cols = [_dequantize(q[:, c], step_at(c, tag), haar)
@@ -429,6 +453,9 @@ def decode(data: bytes, positions: np.ndarray,
                                               cols[1], haar)
             return np.stack(cols, axis=1)
 
+        if lcp_on:
+            timing.count("attr.lcp_layers",
+                         sum(k != 0 for k in abh.lcp_coeffs))
         vals = raht_ops.inverse_predicted(
             uniq, depth, read_q, dequant, ncomp, integer_haar=haar,
             ref_pyramid=ref_pyr,
@@ -440,7 +467,8 @@ def decode(data: bytes, positions: np.ndarray,
         out = vals[inv]
         return out[:, 0] if ncomp == 1 else out
 
-    qrows = dec.zrow_residuals(ctx.zrow, n, ncomp).astype(np.int64)
+    with timing.counted("attr.entropy_s"):
+        qrows = dec.zrow_residuals(ctx.zrow, n, ncomp).astype(np.int64)
     coeffs = np.stack([_dequantize(qrows[:, c], steps[c], haar)
                        for c in range(ncomp)], axis=1)
     vals = raht_ops.inverse(uniq, coeffs, depth, integer_haar=haar)

@@ -189,7 +189,9 @@ def encode(positions: np.ndarray, depth: int, enc, ctx: OctreeContexts,
         pass
     elif qtbt:
         encode_qtbt_np(uniq, depth, enc, ctx, ctx_mode, axis_bits,
-                       bytewise=bytewise)
+                       bytewise=bytewise,
+                       levels=(_device_levels(uniq, depth, ctx_mode, device)
+                               if engine == "device" else None))
     elif planar and (ref_codes is None or ref_codes.size == 0) \
             and not idcm:
         # planar mode runs the numpy engine (native planar: r2);
@@ -221,22 +223,12 @@ def encode(positions: np.ndarray, depth: int, enc, ctx: OctreeContexts,
         enc.octree(ctx.occupancy_sym if bytewise else ctx.occupancy,
                    uniq, depth, ctx_mode, use_sym=bytewise)
     elif engine == "device":
-        compact, counts = ops.encode_analysis_packed(
-            torch.as_tensor(uniq, device=device), depth, ctx_mode)
-        # two-step fetch: the counts, then 4 bytes per tree node
-        counts = counts.cpu().numpy()
-        total = int(counts.sum())
-        packed = compact[:total].cpu().numpy()
-        off = 0
-        for l in range(depth):
-            k = int(counts[l])
-            lvl = packed[off:off + k]
-            off += k
+        for base, occ in _device_levels(uniq, depth, ctx_mode, device):
             if bytewise:
-                enc.occupancy_sym(ctx.occupancy_sym, lvl >> 8,
-                                  (lvl & 0xFF).astype(np.uint8))
+                enc.occupancy_sym(ctx.occupancy_sym, base,
+                                  occ.astype(np.uint8))
             else:
-                enc.occupancy(ctx.occupancy, lvl >> 8, lvl & 0xFF)
+                enc.occupancy(ctx.occupancy, base, occ)
     else:
         levels = ops.build_levels_np(uniq, depth, ctx_mode)
         for lvl in levels:
@@ -475,27 +467,43 @@ def decode_planar_np(depth: int, dec, ctx: OctreeContexts,
     return nodes, lvl_done
 
 
+def _device_levels(uniq: np.ndarray, depth: int, ctx_mode: int, device):
+    """The ``"device"`` engine's analysis: per level, (context bases,
+    occupancy bytes) of its nodes, computed on ``device`` and fetched in
+    two steps (the counts, then 4 bytes a tree node)."""
+    compact, counts = ops.encode_analysis_packed(
+        torch.as_tensor(uniq, device=device), depth, ctx_mode)
+    counts = counts.cpu().numpy()
+    packed = compact[:int(counts.sum())].cpu().numpy()
+    bounds = np.concatenate([[0], np.cumsum(counts)])
+    return [(packed[a:b] >> 8, packed[a:b] & 0xFF)
+            for a, b in zip(bounds[:-1], bounds[1:])]
+
+
 def encode_qtbt_np(uniq: np.ndarray, depth: int, enc,
                    ctx: OctreeContexts, ctx_mode: int, axis_bits,
-                   bytewise: bool = True):
+                   bytewise: bool = True, levels=None):
     """Implicit QT/BT for non-cubic bounding boxes (reference implicit
     geometry partitions): at levels where an axis is exhausted
     (level < depth - axis_bits[a], i.e. every point's bit is zero) the
     axis is treated as a FORCED planar-low axis with no signalling —
     occupancy codes over the surviving 4/2 child slots only.  Both
-    sides derive the forced set from the GBH per-axis root sizes."""
-    levels = ops.build_levels_np(uniq, depth, ctx_mode)
-    for l, lvl in enumerate(levels):
+    sides derive the forced set from the GBH per-axis root sizes.
+    ``levels``: per level (context bases, occupancy bytes) from the
+    device engine (``_device_levels``); None builds them on the host."""
+    if levels is None:
+        levels = [(lvl["ctx_base"], lvl["occ"])
+                  for lvl in ops.build_levels_np(uniq, depth, ctx_mode)]
+    for l, (base, occ) in enumerate(levels):
         forced = np.array([l < depth - axis_bits[a] for a in range(3)])
-        occ32 = lvl["occ"].astype(np.int32)
+        occ32 = occ.astype(np.int32)
         n = occ32.size
         if not forced.any():
             if bytewise:
-                enc.occupancy_sym(ctx.occupancy_sym, lvl["ctx_base"],
-                                  lvl["occ"])
+                enc.occupancy_sym(ctx.occupancy_sym, base,
+                                  occ.astype(np.uint8))
             else:
-                enc.occupancy(ctx.occupancy, lvl["ctx_base"],
-                              lvl["occ"])
+                enc.occupancy(ctx.occupancy, base, occ)
             continue
         eff = np.broadcast_to(forced, (n, 3))
         side = np.zeros((n, 3), dtype=np.int32)

@@ -22,6 +22,7 @@ from .framestore import FrameStore
 from ..models import attributes as attr_model
 from ..models import geometry_octree, geometry_predictive, geometry_trisoup
 from ..ops import processing
+from ..utils import timing
 
 
 def _grid_positions(local: np.ndarray,
@@ -113,9 +114,11 @@ class FrameDecoder:
             m = hls.FrameBoundaryMarker.parse(buf.data)
             self._detect_frame_boundary(m.frame_ctr_lsb)
         elif t == PayloadType.GEOMETRY_BRICK:
-            self._decode_geometry_brick(buf.data)
+            with timing.span("geom.brick"):
+                self._decode_geometry_brick(buf.data)
         elif t == PayloadType.ATTRIBUTE_BRICK:
-            self._decode_attribute_brick(buf.data)
+            with timing.span("attr.brick"):
+                self._decode_attribute_brick(buf.data)
         elif t == PayloadType.CONSTANT_ATTRIBUTE:
             c = hls.ConstantAttribute.parse(buf.data)
             if self._slices:

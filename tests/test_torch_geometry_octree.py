@@ -174,6 +174,28 @@ def test_coding_tools_match_jax(tool, mode):
     _both(pos, depth, enc_kw, dec_kw)
 
 
+@pytest.mark.parametrize("bytewise", [True, False])
+@pytest.mark.parametrize("mode", MODES)
+def test_device_engine_analyses_qtbt_bricks_on_the_device(monkeypatch, mode,
+                                                          bytewise):
+    """A non-cubic box (implicit QT/BT, as every CLI brick of a body
+    taller than it is wide) on the device engine: the analysis runs on
+    the engine's device, and the stream and decode are the JAX
+    package's."""
+    devices = []
+    analysis = tops.encode_analysis_packed
+
+    def spy(codes, *a, **k):
+        devices.append(codes.device.type)
+        return analysis(codes, *a, **k)
+
+    monkeypatch.setattr(tops, "encode_analysis_packed", spy)
+    kw = dict(engine="device", ctx_mode=mode, bytewise=bytewise,
+              axis_bits=(8, 8, 3))
+    _both(_flat(3000), 8, kw)
+    assert devices == ["cpu"]
+
+
 @pytest.mark.parametrize("num_streams", [1, 3])
 @pytest.mark.parametrize("bytewise", [True, False])
 def test_multistream_matches_jax(num_streams, bytewise):
