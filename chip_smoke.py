@@ -43,6 +43,26 @@ printed line:
       plain version on the card and against the host spec
       (``build_fp_plan``, ``plans_to_torch``, ``row_offsets``), every
       level's tensors and the counts, each tensor 16-byte aligned,
+  (q) the colour brick's float predicted RAHT on the card
+      (``ops/raht_float_device.py``) at one body frame of the
+      benchmark's ``vox10_body_cli`` configuration (~856,500 points,
+      depth 10): (q1) each of its three kernels against its plain
+      version on the card at every launch of an encode and a decode of
+      the frame's RGB (max abs difference 0, launch counts), the
+      residual rows and the reconstruction equal to numpy's loop bit for
+      bit, then each
+      kernel's device time over a warm encode (CUDA events around each
+      launch, recorded behind a spin kernel that covers the launch's
+      host work) beside its byte bound, its launch wall and its plain
+      version's wall; (q2) the frame through
+      ``tmc3-cuda``'s path in process (the benchmark's codec), the card
+      loop against the numpy path: the same attribute brick bytes and
+      decoded RGB, with each path's traced brick times and the card
+      path's launches in its own encode and decode (depth truth and
+      prediction launches a side, depth - 1 inverse launches an encode,
+      depth a decode); (q3)
+      ``tmc3-cuda --mode=1`` in a process of its own decodes the card
+      loop's stream to the same cloud,
   (e) a depth-21 geometry round trip (the 63-bit Morton domain),
   (g) the rANS brick at the bench size through ``models.geometry_rans``
       (one table-pass launch and one emission per encode, one decode
@@ -246,6 +266,14 @@ KERNELS = {
     # no TPU kernel: the JAX package plans on the host and uploads
     "raht_fp_plan": ("raht_fp_plan", "raht_fp_plan.cu",
                      "mpeg_pcc_tmc13_tpu/ops/raht_fp_device.py:99"),
+    # no TPU kernel: the JAX package runs the float predicted RAHT
+    # (forward_predicted / inverse_predicted) in host numpy
+    "raht_float_truth": ("raht_float_truth", "raht_float_loop.cu",
+                         "mpeg_pcc_tmc13_tpu/ops/raht.py:353"),
+    "raht_float_predict": ("raht_float_predict", "raht_float_loop.cu",
+                           "mpeg_pcc_tmc13_tpu/ops/raht.py:212"),
+    "raht_float_inverse": ("raht_float_inverse", "raht_float_loop.cu",
+                           "mpeg_pcc_tmc13_tpu/ops/raht.py:375"),
 }
 # the planner's three kernels, by a part of their entry names
 PLAN_KERNELS = ("plan_count_kernel", "plan_scatter_kernel",
@@ -2512,6 +2540,21 @@ def phase_f(device, uniq, depth, colors, rans, errs, headline):
     return times, chain_ms
 
 
+def _profiled_ms(prof, names, reps=1):
+    """{name: device ms a pass} of the kernels whose entry names contain
+    each of ``names``, from a ``torch.profiler`` trace of ``reps``
+    passes."""
+    dev = dict.fromkeys(names, 0.0)
+    for ev in prof.key_averages():
+        for name in names:
+            if name in ev.key:
+                us = getattr(ev, "device_time_total", None)
+                if us is None:
+                    us = ev.cuda_time_total
+                dev[name] += us / 1e3 / reps
+    return dev
+
+
 def _plan_times(codes, uniq, depth, reps=TIMING_REPS):
     """The RAHT planner as ``DeviceFpRaht`` runs it on the bench cloud
     (``build_plan``: three launches and one host read of the counts)
@@ -2541,14 +2584,7 @@ def _plan_times(codes, uniq, depth, reps=TIMING_REPS):
         for _ in range(reps):
             kern()
         torch.cuda.synchronize()
-    dev = dict.fromkeys(PLAN_KERNELS, 0.0)
-    for ev in prof.key_averages():
-        for name in PLAN_KERNELS:
-            if name in ev.key:
-                us = getattr(ev, "device_time_total", None)
-                if us is None:
-                    us = ev.cuda_time_total
-                dev[name] += us / 1e3 / reps
+    dev = _profiled_ms(prof, PLAN_KERNELS, reps)
     d = sum(dev.values())
     _check(all(v > 0 for v in dev.values()),
            f"torch.profiler timed not every planner kernel: {dev}")
@@ -2979,10 +3015,318 @@ def _level_bytes(rec):
     return nbytes, touched
 
 
+# ---- (q) the colour brick's float predicted RAHT on the card ------------
+
+FLOAT_BODY_SEED = 2_718_281_828   # the body frame of (q)
+FLOAT_KERNELS = ("raht_float_truth", "raht_float_predict",
+                 "raht_float_inverse")
+FLOAT_STEP = 8.0                  # (q1)'s quantiser step
+FLOAT_SPIN_CYCLES = 4_000_000     # ~2 ms of spin ahead of a timed launch
+
+
+def _float_bytes(name, mp, mc, nc, pairs, coarse=False, values=True):
+    """Bytes a float loop kernel must move once at a level: its plan rows
+    (gather and three offsets; the predictor's neighbour tables and skip
+    base), the weights, and 8 bytes a value it reads or writes."""
+    plan = mp * (8 * 8 + 3 * 8) + mc * 8 + mp * 8
+    if name == "raht_float_truth":
+        return plan + ((mc + mp + pairs) * nc * 8 if values else 0)
+    if name == "raht_float_predict":
+        return (plan + mp * (18 * 8 + 18 + 1) + (16 * mp if coarse else 0)
+                + mp * nc * 8 + (3 if values else 1) * pairs * nc * 8)
+    return plan + mp * nc * 8 + 2 * pairs * nc * 8 + mc * nc * 8
+
+
+def _event_ms(times, name, fn, *args):
+    """Run ``fn(*args)`` between two CUDA events; add its ms to
+    ``times[name]``: the wall time of the call, its host work and launch
+    included, not the kernel's device time."""
+    import torch
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    fn(*args)
+    ev[1].record()
+    torch.cuda.synchronize()
+    times[name] = times.get(name, 0.0) + ev[0].elapsed_time(ev[1])
+
+
+def _kernel_event_ms(times, name, fn, *args):
+    """Run the launcher ``fn(*args)`` behind a spin kernel
+    (``torch.cuda._sleep``), between two CUDA events recorded after the
+    spin: the launcher's host work overlaps the spin, so the events time
+    the kernel on the device alone; add its ms to ``times[name]``.  Fails
+    where the host work outlasted the spin."""
+    import torch
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(FLOAT_SPIN_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
+    fn(*args)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    spin_ms = ev[0].elapsed_time(ev[1])
+    _check(host_ms < spin_ms, f"(q1) {name}: the launch's host work "
+           f"({host_ms:.3f} ms) outlasted the spin ({spin_ms:.3f} ms)")
+    times[name] = times.get(name, 0.0) + ev[1].elapsed_time(ev[2])
+
+
+def _float_timed(times, launchers, timer=_event_ms):
+    return tuple((lambda *a, n=n, f=f: timer(times, n, f, *a))
+                 for n, f in zip(FLOAT_KERNELS, launchers))
+
+
+def _float_twins(diffs, nbytes):
+    """Launchers that run each kernel and its plain version on the same
+    inputs (the plain one first, into outputs of its own, since the
+    encoder's prediction writes its residual over the truth rows), keep
+    the largest absolute difference of any output and the bytes the
+    kernel must move, under the kernel's name."""
+    import torch
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_float_device as rfd
+
+    def fresh(ts):
+        return None if ts is None else [torch.empty_like(t) for t in ts]
+
+    def note(name, pairs, nb):
+        d = max([float((a.double() - b.double()).abs().max())
+                 for a, b in pairs if a is not None and a.numel()] + [0.0])
+        diffs[name] = max(diffs.get(name, 0.0), d)
+        nbytes[name] = nbytes.get(name, 0) + nb
+
+    def truth(p, off, mp, vals, w_c, dc, w_p, rows):
+        (w2,), rows2 = fresh([w_p]), fresh(rows)
+        dc2 = None if dc is None else fresh([dc])[0]
+        rfd.truth_ref(p, off, mp, vals, w_c, dc2, w2, rows2)
+        rfd._cuda_truth(p, off, mp, vals, w_c, dc, w_p, rows)
+        pairs = [(w_p, w2)]
+        if vals is not None:
+            pairs += [(dc, dc2)] + list(zip(rows, rows2))
+        note("raht_float_truth", pairs, _float_bytes(
+            "raht_float_truth", mp, p["pidx"].numel(),
+            1 if vals is None else vals.shape[1],
+            sum(r.shape[0] for r in rows or ()), values=vals is not None))
+
+    def predict(p, off, mp, recon_p, w_p, w_c, coarser, t0, weights,
+                truth_rows, res, pred):
+        res2, pred2 = fresh(res), fresh(pred)
+        rfd.predict_ref(p, off, mp, recon_p, w_p, w_c, coarser, t0, weights,
+                        truth_rows, res2, pred2)
+        rfd._cuda_predict(p, off, mp, recon_p, w_p, w_c, coarser, t0,
+                          weights, truth_rows, res, pred)
+        pairs = list(zip(pred, pred2)) + list(zip(res or (), res2 or ()))
+        note("raht_float_predict", pairs, _float_bytes(
+            "raht_float_predict", mp, p["pidx"].numel(), recon_p.shape[1],
+            sum(r.shape[0] for r in pred), coarse=coarser is not None,
+            values=res is not None))
+
+    def inverse(p, off, mp, recon_p, w_c, pred, deq, recon_c):
+        (r2,) = fresh([recon_c])
+        rfd.inverse_ref(p, off, mp, recon_p, w_c, pred, deq, r2)
+        rfd._cuda_inverse(p, off, mp, recon_p, w_c, pred, deq, recon_c)
+        note("raht_float_inverse", [(recon_c, r2)], _float_bytes(
+            "raht_float_inverse", mp, recon_c.shape[0], recon_c.shape[1],
+            sum(r.shape[0] for r in pred)))
+
+    return truth, predict, inverse
+
+
+@contextlib.contextmanager
+def _numpy_colour():
+    """The colour brick's numpy path while the block runs: the frame
+    codec hands the brick no device."""
+    from mpeg_pcc_tmc13_tpu_torch.runtime import decoder, encoder
+    before = encoder.cuda_or_none, decoder.cuda_or_none
+    encoder.cuda_or_none = decoder.cuda_or_none = lambda d: None
+    try:
+        yield
+    finally:
+        encoder.cuda_or_none, decoder.cuda_or_none = before
+
+
+class _Sink:
+    def __init__(self):
+        self.spans, self.counters = {}, {}
+
+
+@contextlib.contextmanager
+def _float_launches(rfd, counts):
+    """Count the float loop's launches in each card-loop encode and
+    decode the block makes through ``models/attr_raht``: ``counts``
+    gets (side, depth, {kernel: launches}) a call."""
+    before = rfd.encode, rfd.decode
+
+    def counted(side, fn, depth_at):
+        def run(*a, **kw):
+            rfd.reset_launch_counts()
+            out = fn(*a, **kw)
+            counts.append((side, a[depth_at], dict(rfd.LAUNCHES)))
+            return out
+        return run
+    rfd.encode = counted("encode", before[0], 2)
+    rfd.decode = counted("decode", before[1], 1)
+    try:
+        yield
+    finally:
+        rfd.encode, rfd.decode = before
+
+
+def phase_q(device, seed=FLOAT_BODY_SEED):
+    """(q) the colour brick's float predicted RAHT on the card at the
+    body frame of the benchmark's ``vox10_body_cli`` configuration.
+    Returns ({kernel: (wall ms, plain ms, device ms, bound ms, bound
+    by)}, {kernel: launches of the CLI path's encode and decode},
+    {kernel: max abs difference from its plain version})."""
+    from mpeg_pcc_tmc13_tpu_torch.models import attr_raht
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht as raht_ops
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_float_device as rfd
+    from mpeg_pcc_tmc13_tpu_torch.utils import timing
+    from pccbench.codecs import tmc3_cli
+    from pccbench.frames import make_frames
+    from pccbench.spans import Clock
+
+    cfg = json.loads((REPO / "pccbench/configs/vox10_body_cli.json")
+                     .read_text())
+    t0 = time.perf_counter()
+    fr = make_frames(dict(cfg, frames=1), seed)[0]
+    codes, rgb = fr.codes, fr.values
+    depth = attr_raht._tree_depth(codes)
+    _line("q", points=codes.size, depth=depth,
+          frame_s=f"{time.perf_counter() - t0:.1f}")
+    args = ((2, 6), (9, 3, 1), device)
+
+    # (q1) each kernel against its plain version at every launch of an
+    # encode and a decode of the frame's RGB (a plain quantiser), and the
+    # residuals and reconstruction against numpy's loop, bit for bit
+    def quantiser(seen):
+        def quant(arr, tag):
+            seen.append(arr.copy())
+            return np.round(arr / FLOAT_STEP)
+        return quant
+
+    def dequant(q, tag):
+        return FLOAT_STEP * q
+
+    def reader(rows):
+        coded = iter([np.round(r / FLOAT_STEP) for r in rows])
+        return lambda n, tag: next(coded)
+
+    diffs, nbytes = {}, {}
+    rfd.reset_launch_counts()
+    twins = _float_twins(diffs, nbytes)
+    card_rows, spec_rows = [], []
+    rfd.encode(codes, rgb, depth, quantiser(card_rows), dequant, *args,
+               twins)
+    enc_bytes = dict(nbytes)
+    rec = rfd.decode(codes, depth, reader(card_rows), dequant, 3, *args,
+                     twins)
+    raht_ops.forward_predicted(codes, rgb, depth, quantiser(spec_rows),
+                               dequant)
+    spec = raht_ops.inverse_predicted(codes, depth, reader(spec_rows),
+                                      dequant, 3)
+    _check(len(card_rows) == len(spec_rows) == 1 + 3 * depth
+           and all(np.array_equal(a, b)
+                   for a, b in zip(card_rows, spec_rows)),
+           "(q1) the card's residual rows are not numpy's")
+    _check(np.array_equal(rec, spec), "(q1) the card's reconstruction is "
+           "not numpy's")
+    _check(rfd.LAUNCHES == {"raht_float_truth": 2 * depth,
+                            "raht_float_predict": 2 * depth,
+                            "raht_float_inverse": 2 * depth - 1},
+           f"(q1) launches {rfd.LAUNCHES}")
+    for name in FLOAT_KERNELS:
+        _check(diffs[name] == 0.0, f"(q1) {name} differs from its plain "
+               f"version by {diffs[name]}")
+    # a warm encode through the kernels, then through the plain
+    # versions, each launcher call between CUDA events (wall time: host
+    # work and launch included), then one through the kernels each
+    # behind a spin (the kernels' own device time; a torch.profiler
+    # trace here would leave the later ones of (f) empty)
+    ktimes, ptimes, dev = {}, {}, {}
+    rfd.encode(codes, rgb, depth, quantiser([]), dequant, *args,
+               _float_timed(ktimes, rfd.CUDA_LAUNCHERS))
+    rfd.encode(codes, rgb, depth, quantiser([]), dequant, *args,
+               _float_timed(ptimes, rfd.PLAIN_LAUNCHERS))
+    rfd.encode(codes, rgb, depth, quantiser([]), dequant, *args,
+               _float_timed(dev, rfd.CUDA_LAUNCHERS, _kernel_event_ms))
+    times = {}
+    for name in FLOAT_KERNELS:
+        bound, by = _bound_ms(enc_bytes[name])
+        times[name] = (ktimes[name], ptimes[name], dev[name], bound, by)
+        _line("q1", kernel=name, max_abs_err=diffs[name],
+              encode_device_ms=f"{dev[name]:.4f}",
+              encode_bound_ms=f"{bound:.4f}",
+              encode_launch_wall_ms=f"{ktimes[name]:.4f}",
+              encode_plain_wall_ms=f"{ptimes[name]:.2f}")
+
+    # (q2) the frame through tmc3-cuda's path: card loop, numpy path;
+    # the card path's launches counted in its own encode and decode
+    out, counts = {}, []
+    for path in ("card", "numpy"):
+        codec = tmc3_cli.make(cfg, None, [str(device)], Clock(False))
+        sinks = _Sink(), _Sink()
+        with (_numpy_colour() if path == "numpy"
+              else _float_launches(rfd, counts)):
+            t1 = time.perf_counter()
+            with timing.tracing(sinks[0], "encode"):
+                enc = codec.encode(codes, rgb)
+            t2 = time.perf_counter()
+            with timing.tracing(sinks[1], "decode"):
+                dcodes, dvals = codec.decode(enc.geom, enc.attr, codes.size)
+            t3 = time.perf_counter()
+        _check(np.array_equal(dcodes, codes), f"(q2) {path}: positions")
+        sp = {**sinks[0].spans, **sinks[1].spans}
+        ct = {**sinks[0].counters, **sinks[1].counters}
+        want = 1 if path == "card" else 0
+        _check(ct["encode.attr.card_bricks"] == want
+               and ct["decode.attr.card_bricks"] == want,
+               f"(q2) {path}: card bricks {ct}")
+        out[path] = (enc, dvals)
+        if path == "card":
+            d = counts[0][1] if counts else -1
+
+            def want(inverse):
+                return {"raht_float_truth": d, "raht_float_predict": d,
+                        "raht_float_inverse": inverse}
+            _check(counts == [("encode", d, want(d - 1)),
+                              ("decode", d, want(d))],
+                   f"(q2) the CLI path's launches {counts}")
+            for side, d, n in counts:
+                _line("q2", path=path, side=side, depth=d,
+                      **{k.replace("raht_float_", "launches_"): v
+                         for k, v in n.items()})
+        _line("q2", path=path, encode_s=f"{t2 - t1:.3f}",
+              decode_s=f"{t3 - t2:.3f}",
+              attr_brick_encode_ms=f"{1e3 * sp['encode.attr.brick']:.1f}",
+              attr_quant_encode_ms=f"{1e3 * sp['encode.attr.quant']:.1f}",
+              attr_brick_decode_ms=f"{1e3 * sp['decode.attr.brick']:.1f}",
+              attr_bytes=len(enc.attr))
+    (ec, vc), (en, vn) = out["card"], out["numpy"]
+    _check(ec.attr == en.attr, "(q2) the card loop's attribute bricks "
+           "differ from the numpy path's")
+    _check(ec.geom == en.geom, "(q2) the geometry units differ")
+    _check(np.array_equal(vc, vn), "(q2) the decoded RGB differs")
+
+    # (q3) tmc3-cuda --mode=1, a process of its own, on the card's stream
+    CLI_DIR.mkdir(parents=True, exist_ok=True)
+    stream, ply_out = CLI_DIR / "float_card.bin", CLI_DIR / "float_card.ply"
+    stream.write_bytes(ec.geom + ec.attr)
+    secs, _ = _cli_process(["--mode=1", f"--compressedStreamPath={stream}",
+                            f"--reconstructedDataPath={ply_out}"])
+    got = np.asarray(_decoded(ply_out, codes), dtype=np.int64)
+    _check(np.array_equal(got, vc),
+           "(q3) tmc3-cuda --mode=1 decoded other colours")
+    _line("q3", cli_decode_process_s=f"{secs:.1f}", same_cloud=True)
+    launches = {k: sum(n[k] for _, _, n in counts) for k in FLOAT_KERNELS}
+    return times, launches, diffs
+
+
 # the kernels whose registers, shared memory and spills (b) prints, by a
 # part of their (possibly mangled) entry names
 PTXAS_KERNELS = ("raht_fp_group_kernel", "octree_expand_count_kernel",
-                 "octree_expand_level_kernel", "plan_blocks_kernel")
+                 "octree_expand_level_kernel", "plan_blocks_kernel",
+                 "raht_float_predict_kernel")
 
 
 def _ptxas_report(so, names):
@@ -3060,6 +3404,9 @@ def main() -> int:
     p_errs, headline = phase_p(device, uniq, BENCH_DEPTH,      # (p)
                                colors)
     errs.update(p_errs)
+    q_times, q_launches, q_errs = phase_q(device)              # (q)
+    launches.update(q_launches)
+    errs.update(q_errs)
     phase_e(device)                                            # (e)
     rans, rans_launches, rans_errs = phase_g(                  # (g)
         device, uniq, BENCH_DEPTH, len(r.geom_payload))
@@ -3079,6 +3426,7 @@ def main() -> int:
     times, chain_ms = phase_f(device, uniq, BENCH_DEPTH,       # (f)
                               colors, rans, errs, headline)
     times.update(m_times)
+    times.update(q_times)
 
     _line("z", smoke_s=f"{time.perf_counter() - t_start:.1f}")
     kernels = []

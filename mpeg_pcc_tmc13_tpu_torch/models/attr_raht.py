@@ -196,12 +196,15 @@ def _native_fastpath_ok(coder, aps, abh, haar, ncomp, steps) -> bool:
 
 
 def _open_counters():
-    """A brick's counters at 0, so that a traced run records all three
+    """A brick's counters at 0, so that a traced run records all four
     whichever path codes the brick: ``attr.entropy_s`` (seconds in the
     residual and zrow coder), ``attr.lcp_layers`` (layers whose
-    last-component prediction coefficient is non-zero) and
-    ``attr.native_bricks`` (bricks coded by native/attr_raht.cc)."""
-    for name in ("attr.entropy_s", "attr.lcp_layers", "attr.native_bricks"):
+    last-component prediction coefficient is non-zero),
+    ``attr.native_bricks`` (bricks coded by native/attr_raht.cc) and
+    ``attr.card_bricks`` (bricks whose float predicted RAHT ran the card
+    loop, ops/raht_float_device.py)."""
+    for name in ("attr.entropy_s", "attr.lcp_layers", "attr.native_bricks",
+                 "attr.card_bricks"):
         timing.count(name, 0)
 
 
@@ -217,7 +220,14 @@ def _ref_pyramid(ref, aps, depth, haar):
 
 def encode(values: np.ndarray, positions: np.ndarray,
            aps: AttributeParameterSet, desc: AttributeDescription,
-           ctx: AttributeContexts, ref=None, abh=None) -> bytes:
+           ctx: AttributeContexts, ref=None, abh=None,
+           device=None) -> bytes:
+    """One RAHT attribute brick.  ``device``: where a float predicted
+    brick that the native engine refuses (LCP on, per-layer QP deltas)
+    runs its transform and prediction (ops/raht_float_device.py: the
+    kernels on a CUDA device, their plain versions elsewhere), the
+    quantiser and coder staying on the host, the same bytes; None:
+    numpy's ops/raht.py."""
     _open_counters()
     codes = morton.encode(positions.astype(np.int64))
     uniq, inv, keep = _unique_and_inverse(codes)
@@ -312,22 +322,23 @@ def encode(values: np.ndarray, positions: np.ndarray,
                 return enc.get_bytes()
 
         def quant(arr, tag):
-            arr = _apply_rdoq(arr, tag)
-            cols = [_quantize(arr[:, c], step_at(c, tag))
-                    for c in range(ncomp)]
-            if lcp_on:
-                # chunk-order coefficient: subtract the predicted
-                # part of comp 2 before quantising
-                dq1 = _dequantize(cols[1], step_at(1, tag), haar)
-                k = _lcp_estimate(arr[:, 1], arr[:, 2])
-                abh.lcp_coeffs.append(k)
-                cols[2] = _quantize(
-                    arr[:, 2] - _lcp_pred(k, dq1, haar),
-                    step_at(2, tag))
-            q = np.stack(cols, axis=1)
-            with timing.counted("attr.entropy_s"):
-                enc.zrow_residuals(ctx.zrow, q.astype(np.int32))
-            return q
+            with timing.span("attr.quant"):
+                arr = _apply_rdoq(arr, tag)
+                cols = [_quantize(arr[:, c], step_at(c, tag))
+                        for c in range(ncomp)]
+                if lcp_on:
+                    # chunk-order coefficient: subtract the predicted
+                    # part of comp 2 before quantising
+                    dq1 = _dequantize(cols[1], step_at(1, tag), haar)
+                    k = _lcp_estimate(arr[:, 1], arr[:, 2])
+                    abh.lcp_coeffs.append(k)
+                    cols[2] = _quantize(
+                        arr[:, 2] - _lcp_pred(k, dq1, haar),
+                        step_at(2, tag))
+                q = np.stack(cols, axis=1)
+                with timing.counted("attr.entropy_s"):
+                    enc.zrow_residuals(ctx.zrow, q.astype(np.int32))
+                return q
 
         def dequant(q, tag):
             cols = [_dequantize(q[:, c], step_at(c, tag), haar)
@@ -337,12 +348,18 @@ def encode(values: np.ndarray, positions: np.ndarray,
                                               cols[1], haar)
             return np.stack(cols, axis=1)
 
-        raht_ops.forward_predicted(
-            uniq, uvals, depth, quant, dequant, integer_haar=haar,
-            ref_pyramid=ref_pyr,
-            thresholds=(aps.raht_pred_threshold0,
-                        aps.raht_pred_threshold1),
-            weights=aps.raht_pred_weights)
+        thresholds = (aps.raht_pred_threshold0, aps.raht_pred_threshold1)
+        if device is not None and ref_pyr is None and not haar:
+            from ..ops import raht_float_device
+            raht_float_device.encode(uniq, uvals, depth, quant, dequant,
+                                     thresholds, aps.raht_pred_weights,
+                                     device)
+            timing.count("attr.card_bricks", 1)
+        else:
+            raht_ops.forward_predicted(
+                uniq, uvals, depth, quant, dequant, integer_haar=haar,
+                ref_pyramid=ref_pyr, thresholds=thresholds,
+                weights=aps.raht_pred_weights)
         if lcp_on:
             timing.count("attr.lcp_layers",
                          sum(k != 0 for k in abh.lcp_coeffs))
@@ -364,7 +381,9 @@ def encode(values: np.ndarray, positions: np.ndarray,
 
 def decode(data: bytes, positions: np.ndarray,
            aps: AttributeParameterSet, desc: AttributeDescription,
-           ctx: AttributeContexts, ref=None, abh=None) -> np.ndarray:
+           ctx: AttributeContexts, ref=None, abh=None,
+           device=None) -> np.ndarray:
+    """Decode one RAHT attribute brick; ``device`` as ``encode``'s."""
     _open_counters()
     codes = morton.encode(positions.astype(np.int64))
     uniq, inv, keep = _unique_and_inverse(codes)
@@ -456,12 +475,18 @@ def decode(data: bytes, positions: np.ndarray,
         if lcp_on:
             timing.count("attr.lcp_layers",
                          sum(k != 0 for k in abh.lcp_coeffs))
-        vals = raht_ops.inverse_predicted(
-            uniq, depth, read_q, dequant, ncomp, integer_haar=haar,
-            ref_pyramid=ref_pyr,
-            thresholds=(aps.raht_pred_threshold0,
-                        aps.raht_pred_threshold1),
-            weights=aps.raht_pred_weights)
+        thresholds = (aps.raht_pred_threshold0, aps.raht_pred_threshold1)
+        if device is not None and ref_pyr is None and not haar:
+            from ..ops import raht_float_device
+            vals = raht_float_device.decode(uniq, depth, read_q, dequant,
+                                            ncomp, thresholds,
+                                            aps.raht_pred_weights, device)
+            timing.count("attr.card_bricks", 1)
+        else:
+            vals = raht_ops.inverse_predicted(
+                uniq, depth, read_q, dequant, ncomp, integer_haar=haar,
+                ref_pyramid=ref_pyr, thresholds=thresholds,
+                weights=aps.raht_pred_weights)
         if not haar:
             vals = np.round(vals).astype(np.int64)
         out = vals[inv]

@@ -96,7 +96,8 @@ def _morton_perm(positions: np.ndarray):
 
 def encode(values: np.ndarray, positions: np.ndarray,
            aps: AttributeParameterSet, desc: AttributeDescription,
-           ctx: AttributeContexts, ref=None, abh=None) -> bytes:
+           ctx: AttributeContexts, ref=None, abh=None,
+           device=None) -> bytes:
     """Encode one attribute of a slice; returns the brick body bytes.
 
     positions: coding-grid positions in geometry coding order (the
@@ -104,6 +105,8 @@ def encode(values: np.ndarray, positions: np.ndarray,
     ref: optional (ref_positions, ref_values) for inter attribute
     prediction (slice-local compensated reference points).
     abh: the brick header carrying slice/per-layer QP deltas.
+    device: the torch device a float predicted RAHT brick runs its
+    transform on (models/attr_raht.py), the same bytes; None: the host.
     """
     if aps.attr_encoding == AttributeEncoding.RAW:
         return encode_raw(values, desc)
@@ -113,7 +116,7 @@ def encode(values: np.ndarray, positions: np.ndarray,
     if aps.attr_encoding == AttributeEncoding.RAHT:
         from . import attr_raht
         return attr_raht.encode(values, positions, aps, desc, ctx,
-                                ref=ref, abh=abh)
+                                ref=ref, abh=abh, device=device)
     if aps.attr_encoding in (AttributeEncoding.PRED, AttributeEncoding.LIFT):
         from . import attr_predlift
         return attr_predlift.encode(values, positions, aps, desc, ctx,
@@ -124,7 +127,7 @@ def encode(values: np.ndarray, positions: np.ndarray,
 def decode(data: bytes, positions: np.ndarray,
            aps: AttributeParameterSet, desc: AttributeDescription,
            ctx: AttributeContexts, ref=None,
-           max_lod_levels: int = 0, abh=None) -> np.ndarray:
+           max_lod_levels: int = 0, abh=None, device=None) -> np.ndarray:
     count = positions.shape[0]
     if aps.attr_encoding == AttributeEncoding.RAW:
         return decode_raw(data, count, desc)
@@ -132,7 +135,7 @@ def decode(data: bytes, positions: np.ndarray,
     if aps.attr_encoding == AttributeEncoding.RAHT:
         from . import attr_raht
         vals = attr_raht.decode(data, positions[perm], aps, desc, ctx,
-                                ref=ref, abh=abh)
+                                ref=ref, abh=abh, device=device)
     elif aps.attr_encoding in (AttributeEncoding.PRED,
                                AttributeEncoding.LIFT):
         from . import attr_predlift

@@ -191,4 +191,15 @@ def _open(so: Path):
     lib.raht_fp_plan_build_launch.argtypes = [
         vp, i64, i32, i64, vp, pp, ctypes.POINTER(ctypes.c_int64), vp]
     lib.raht_fp_plan_build_launch.restype = i32
+    lib.raht_float_truth_launch.argtypes = [pp, i64, i32, vp, vp, vp, vp, vp,
+                                            vp, vp, vp]
+    lib.raht_float_truth_launch.restype = i32
+    lib.raht_float_predict_launch.argtypes = [
+        pp, i64, i32, vp, vp, vp, vp, vp, i64,
+        ctypes.POINTER(ctypes.c_double), pp, pp, pp,
+        ctypes.POINTER(ctypes.c_uint8), vp]
+    lib.raht_float_predict_launch.restype = i32
+    lib.raht_float_inverse_launch.argtypes = [pp, i64, i32, vp, vp, pp, pp,
+                                              vp, vp]
+    lib.raht_float_inverse_launch.restype = i32
     return lib

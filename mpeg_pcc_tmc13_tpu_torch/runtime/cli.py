@@ -19,7 +19,11 @@ unset, they take the current CUDA device and refuse to run without one.
 ``--shardDevices=N`` (N > 1) places the slice workers on the first N
 CUDA devices instead, so it is refused together with ``--device``.
 The host-only paths (``--refSyntax=1``, the host geometry engines, every
-attribute codec) need no device and ask for none.
+attribute codec) need no device and ask for none.  A float predicted
+RAHT colour brick (last-component prediction on, the CLI's default) runs
+its transform on the CUDA device that ``--device`` names, or unset on the
+current one, on encode and on decode alike, and on the host where there
+is none: the same bytes and values either way.
 """
 
 from __future__ import annotations

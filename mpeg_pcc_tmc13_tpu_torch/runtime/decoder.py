@@ -23,6 +23,7 @@ from ..models import attributes as attr_model
 from ..models import geometry_octree, geometry_predictive, geometry_trisoup
 from ..ops import processing
 from ..utils import timing
+from ..utils.device import cuda_or_none
 
 
 def _grid_positions(local: np.ndarray,
@@ -60,7 +61,9 @@ class FrameDecoder:
     device: torch device of the rANS brick decode; None = the current
     CUDA device, raising when there is none (utils/device.resolve).
     The stream decides that a brick is rANS, so such a stream never
-    decodes on the host unasked.
+    decodes on the host unasked.  A float predicted RAHT colour brick
+    runs its transform on that device when it is a CUDA device (None:
+    where one exists), on the host otherwise; the values are the same.
     """
 
     def __init__(self, on_output_cloud: Callable[[pc.PointCloud], None],
@@ -421,7 +424,8 @@ class FrameDecoder:
         values = attr_model.decode(
             data[off:], sl.local, aps, desc,
             self._attr_ctx.get(abh.aps_id, attr_model.AttributeContexts()),
-            ref=ref, max_lod_levels=self.max_lod_levels, abh=abh)
+            ref=ref, max_lod_levels=self.max_lod_levels, abh=abh,
+            device=cuda_or_none(self.device))
         sl.attrs[abh.sps_attr_idx] = values
 
     # -- frame output (reference outputCurrentCloud / inverse scale) --

@@ -28,7 +28,7 @@ from ..ops import processing
 from ..ops import recolour as recolour_ops
 from ..utils import morton as morton_ops
 from ..utils import timing
-from ..utils.device import NoDeviceError
+from ..utils.device import NoDeviceError, cuda_or_none
 
 
 @dataclass
@@ -1117,6 +1117,10 @@ class FrameEncoder:
                 coded = cloud.take(order)
                 dec_positions = coded.positions.astype(np.int64) - slice_origin
 
+            # a float predicted RAHT colour brick runs its transform on
+            # the card where there is one, as the decoder does
+            # (models/attr_raht.py); the same bytes either way
+            card = cuda_or_none(p.device)
             for i, (aps, desc) in enumerate(zip(self.aps,
                                                 self.sps.attributes)):
                 values = (coded.colors if desc.label == "color"
@@ -1187,11 +1191,11 @@ class FrameEncoder:
                 ctx_copy = self._attr_ctx[i].copy() if need_recon else None
                 body = attr_model.encode(
                     values, dec_positions, aps, desc, self._attr_ctx[i],
-                    ref=ref, abh=abh)
+                    ref=ref, abh=abh, device=card)
                 if need_recon:
                     recon = attr_model.decode(
                         body, dec_positions, aps, desc, ctx_copy, ref=ref,
-                        abh=abh)
+                        abh=abh, device=card)
                     self._attr_acc.append(
                         (dec_positions + slice_origin,
                          {i: np.asarray(recon)}))

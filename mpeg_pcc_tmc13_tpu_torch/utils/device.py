@@ -22,3 +22,13 @@ def resolve(device=None) -> torch.device:
                             "--device) to run this engine on another "
                             "torch device")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def cuda_or_none(device=None):
+    """The CUDA device a card path takes, or None for the host path:
+    ``device`` when it names a CUDA device; with ``device`` None the
+    current CUDA device where there is one."""
+    if device is None:
+        return resolve() if torch.cuda.is_available() else None
+    dev = torch.device(device)
+    return dev if dev.type == "cuda" else None
