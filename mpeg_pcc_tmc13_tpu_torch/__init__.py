@@ -50,7 +50,8 @@ changed, so each copy names its counterpart by its path: the range
 coder and bitstream syntax (``bitstream/``), PLY I/O, option parsing
 and timing (``utils/``), the point cloud and frame store, the numpy
 RAHT specs and their planner (``ops/raht.py``, ``raht_fp.py``, the
-planner in ``raht_fp_device.py``), the angular and coordinate helpers,
+host planner in ``raht_fp_device.py``: the spec of ``raht_plan.py``),
+the angular and coordinate helpers,
 the tmc3-syntax codec (``conformance/``) and the C++ of the native
 library (``native/``, thirteen translation units), which
 ``bitstream.entropy`` builds with ``g++`` into ``build/tmc13_native/``

@@ -39,8 +39,8 @@
 //
 // Launcher contract (ops/raht_float_device.py): pointers from torch
 // tensors on the caller's current stream, the plan as 7 pointers (gather,
-// off_z, off_y, off_x, nbr_idx, nbr_ok, en_base); each launcher returns
-// cudaGetLastError().
+// off_z, off_y, off_x, nbr_idx, nbr_ok, en_base: ops/raht_plan.py's
+// float_kernel_plan()); each launcher returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -80,7 +80,7 @@
 //
 // Launcher contract (ops/raht_fp_device.py): pointers from torch tensors
 // on the caller's current stream, the plan as an array of 22 pointers in
-// the order of kernel_plan() (the Plan struct's), the group's staged plan
+// the order of ops/raht_plan.py's kernel_plan() (the Plan struct's), the group's staged plan
 // tensors 16-byte aligned; each launcher returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -343,7 +343,7 @@ __device__ __forceinline__ i64 quant_f(i64 res, i64 st, i64 d3, double r3,
   return res < 0 ? neg(q) : q;
 }
 
-// bit o: neighbour offset j touches octant o (ops/raht_fp_device.py
+// bit o: neighbour offset j touches octant o (ops/raht_plan.py
 // NBR_OCTANTS; the launcher checks the caller's table against it)
 __host__ __device__ constexpr unsigned nbr_octants(int j) {
   return j == 0 ? 240u : j == 1 ? 15u : j == 2 ? 204u : j == 3 ? 51u

@@ -4,9 +4,9 @@
 // Replaces no TPU kernel: the JAX package plans on the host
 // (mpeg_pcc_tmc13_tpu/ops/raht_fp_device.py: build_fp_plan, numpy) and
 // uploads the plan.  The port keeps that planner (ops/raht_fp_device.py:
-// build_fp_plan, plans_to_torch, row_offsets) as the spec and the CPU
-// path; the plain PyTorch version of these passes is build_plan_ref in
-// the same module.  Every tensor equals the spec's bit for bit.
+// build_fp_plan, plans_to_torch; ops/raht_plan.py: row_offsets) as the
+// spec; the plain PyTorch version of these passes is build_plan_ref in
+// ops/raht_plan.py.  Every tensor equals the spec's bit for bit.
 //
 // The idea.  For sorted distinct codes c, leaf i > 0 first differs from
 // leaf i - 1 at bit m = msb(c[i] ^ c[i-1]), where c[i] has the 1.  So:
@@ -55,7 +55,7 @@
 // bytes (raht_fp_group stages the plan by 16-byte copies).  The host
 // gives each level's base rows and node counts (Layout).
 //
-// Launcher contract (ops/raht_fp_device.py): pointers from torch tensors
+// Launcher contract (ops/raht_plan.py): pointers from torch tensors
 // on the caller's current stream, the buffers as an array of kBufs
 // pointers in Buf's order (CARD_BUFS there), the layout as kLayoutWords
 // int64; each launcher returns cudaGetLastError().

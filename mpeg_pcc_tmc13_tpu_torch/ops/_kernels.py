@@ -13,6 +13,11 @@ Nothing here runs at import.  A missing ``nvcc`` or a failed build
 raises; there is no fallback.  ``build()`` and ``load()`` hold a
 module lock, so threads of one process that reach the kernels together
 (the CLI's slice-parallel encode) build and load the library once.
+
+The launchers' shared plumbing lives here too: ``LAUNCHES`` counts each
+kernel's launches by name (the plain versions add nothing; safe to count
+from several threads), ``launched`` checks a launcher's return code and
+counts it, and ``ptr``/``ptrs``/``aligned`` pass tensors to a launcher.
 """
 
 from __future__ import annotations
@@ -35,6 +40,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIB = None
 _LOCK = threading.RLock()
+
+# launches of each kernel, by name: a wrapper's call counts the launches
+# it made (``octree_occ_u8``: two grid passes; ``octree_expand``: a
+# counting pass, then one a level; ``raht_fp_plan``: its count pass, then
+# scatter and blocks)
+LAUNCHES = {name: 0 for name in (
+    "fwd_blocks", "inv_blocks", "table_pass", "encode_emit", "decode_level",
+    "octree_occ_u8", "octree_expand", "fwd_blocks_int",
+    "raht_fp_truth_level", "raht_fp_group", "raht_fp_plan",
+    "raht_float_truth", "raht_float_predict", "raht_float_inverse")}
+_COUNT_LOCK = threading.Lock()
 
 
 def _sources():
@@ -120,6 +136,41 @@ def on_card(t) -> bool:
                          "tensors for the plain version or CUDA tensors "
                          "for the kernel")
     return True
+
+
+def reset_launch_counts() -> None:
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def launched(name: str, rc: int, n: int = 1) -> None:
+    """After a launcher returned ``rc``: raise for a CUDA error, else add
+    ``n`` launches to ``name``'s count (``n=0`` for a probe, which counts
+    nothing)."""
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    if n:
+        with _COUNT_LOCK:
+            LAUNCHES[name] += n
+
+
+def ptr(t):
+    """A tensor's device pointer for a launcher, None (NULL) for None."""
+    return None if t is None else t.data_ptr()
+
+
+def ptrs(ts):
+    """A C array of the tensors' pointers (``ptr`` of each)."""
+    return (ctypes.c_void_p * len(ts))(*(ptr(t) for t in ts))
+
+
+def aligned(t):
+    """``t`` contiguous and starting on 16 bytes (the kernels' TMA bulk
+    and cp.async copies): a view at an odd word offset is copied (on the
+    launch's stream, so freeing it after the launch is safe)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def stream(t) -> int:

@@ -25,8 +25,8 @@ hand-written kernel ``octree_occ_u8`` and ``_expand_level``/
 plain versions, the ``_ref`` functions, which the kernels equal bit for
 bit and which the kernels' algorithms are mirrored against in plain
 torch (``first_level_mirror``, ``occ_u8_mirror``,
-``expand_level_mirror``) for the tests.  ``LAUNCHES`` counts the
-kernels' launches.
+``expand_level_mirror``) for the tests.  ``_kernels.LAUNCHES`` counts
+the kernels' launches.
 
 The plain device half runs in native int64 throughout.  The reference
 splits each code at bit 30 to keep its level sweep in int32, and that
@@ -45,7 +45,6 @@ from the data.
 from __future__ import annotations
 
 import functools
-import threading
 
 import numpy as np
 import torch
@@ -269,29 +268,8 @@ def encode_occ_u8_hdr_ref(leaf_codes_sorted: torch.Tensor, depth: int,
 
 # ---- the hand-written kernels (csrc/octree_levels.cu) ------------------
 
-# launches of each kernel (two grid passes per occupancy call; one
-# counting pass per expansion call plus one launch a level); the plain
-# versions add nothing.  Safe to count from several threads.
-LAUNCHES = {"octree_occ_u8": 0, "octree_expand": 0}
-_COUNT_LOCK = threading.Lock()
 # rows per tile of both kernels (kTile): 256 threads x 16 rows
 KERNEL_TILE = 4096
-
-
-def reset_launch_counts() -> None:
-    with _COUNT_LOCK:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
-
-
-def _count(name: str, n: int = 1) -> None:
-    with _COUNT_LOCK:
-        LAUNCHES[name] += n
-
-
-def _launched(name: str, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
 def _occ_u8_words(c: torch.Tensor, depth: int, cap: int) -> torch.Tensor:
@@ -318,8 +296,7 @@ def _occ_u8_words(c: torch.Tensor, depth: int, cap: int) -> torch.Tensor:
         rc = lib.octree_occ_u8_launch(c.data_ptr(), n, depth, cap,
                                       words.data_ptr(), nwords,
                                       scratch.data_ptr(), _kernels.stream(c))
-    _launched("octree_occ_u8", rc)
-    _count("octree_occ_u8", 2)
+    _kernels.launched("octree_occ_u8", rc, 2)   # two grid passes
     return words
 
 
@@ -742,8 +719,7 @@ def _expand_launch(lib, occ, counts, levels, nrows, scratch, tot, stream):
         occ.data_ptr(), occ.numel(),
         counts.data_ptr() if counts is not None else None, levels, nrows,
         scratch.data_ptr(), tot.data_ptr(), stream)
-    _launched("octree_expand (count)", rc)
-    _count("octree_expand")
+    _kernels.launched("octree_expand", rc)
 
 
 def _expand_level_launch(lib, occ, counts, levels, l, nrows, scratch, tot,
@@ -755,8 +731,7 @@ def _expand_level_launch(lib, occ, counts, levels, l, nrows, scratch, tot,
         prev.data_ptr() if prev is not None else None, prev_rows,
         out.data_ptr(), src.data_ptr() if src is not None else None,
         int(final), stream)
-    _launched("octree_expand", rc)
-    _count("octree_expand")
+    _kernels.launched("octree_expand", rc)
 
 
 def _expand_level(nodes: torch.Tensor, occ: torch.Tensor, nmax: int,
@@ -864,7 +839,7 @@ def expand_chain_probe(nrows: int, device) -> None:
     with torch.cuda.device(device):
         rc = lib.octree_expand_chain_probe_launch(
             nrows, torch.cuda.current_stream(device).cuda_stream)
-    _launched("octree_expand chain probe", rc)
+    _kernels.launched("octree_expand_chain_probe", rc, 0)
 
 
 def _expand_rows_mirror(b, nodes, r0, start, nmax, out, src):

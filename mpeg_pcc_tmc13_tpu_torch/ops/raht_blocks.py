@@ -14,14 +14,12 @@ Same public layout and dtypes as the JAX functions: values/coefficients
   ``inv_blocks_ref``, which is also what the kernels are checked against
   on the card.
 
-``LAUNCHES`` counts kernel launches per kernel (a launch adds one, the
-plain versions add nothing), so a run can show it went through them.
-It is safe to count from several threads (the CLI's slice workers).
+``_kernels.LAUNCHES`` counts kernel launches per kernel (a launch adds
+one, the plain versions add nothing), so a run can show it went through
+them.
 """
 
 from __future__ import annotations
-
-import threading
 
 import torch
 
@@ -43,21 +41,6 @@ def channel_groups(nchan: int):
     threes = nchan // 3
     return ([(3 * i, 3) for i in range(threes)]
             + [(c, 1) for c in range(3 * threes, nchan)])
-
-
-LAUNCHES = {"fwd_blocks": 0, "inv_blocks": 0}
-_COUNT_LOCK = threading.Lock()
-
-
-def reset_launch_counts() -> None:
-    with _COUNT_LOCK:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
-
-
-def _count(name: str) -> None:
-    with _COUNT_LOCK:
-        LAUNCHES[name] += 1
 
 
 def _pair(wl, wh):
@@ -188,10 +171,7 @@ def fwd_blocks(vals: torch.Tensor, weights: torch.Tensor):
                 part.data_ptr(), weights.data_ptr(), res.data_ptr(),
                 wout.data_ptr(), mask.data_ptr(), nb, part.shape[2],
                 _stream(vals))
-        if rc != 0:
-            raise RuntimeError(
-                f"raht_fwd_blocks launch failed: CUDA error {rc}")
-        _count("fwd_blocks")
+        _kernels.launched("fwd_blocks", rc)
 
     if nc == 0:                        # wout and mask need one launch still
         launch(vals.new_zeros(nb, 8, 1), vals.new_empty(nb, 8, 1))
@@ -215,10 +195,7 @@ def inv_blocks(coeffs: torch.Tensor, weights: torch.Tensor):
             rc = lib.raht_inv_blocks_launch(
                 part.data_ptr(), weights.data_ptr(), res.data_ptr(), nb,
                 part.shape[2], _stream(coeffs))
-        if rc != 0:
-            raise RuntimeError(
-                f"raht_inv_blocks launch failed: CUDA error {rc}")
-        _count("inv_blocks")
+        _kernels.launched("inv_blocks", rc)
 
     _by_channel_runs(launch, coeffs, out)
     return out

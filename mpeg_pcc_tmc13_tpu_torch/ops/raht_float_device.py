@@ -3,7 +3,7 @@ closed loop of ``ops/raht.py``'s ``forward_predicted`` and
 ``inverse_predicted`` (no reference pyramid, no integer Haar) over the
 card plan, with the quantiser and the coder left on the host.
 
-The structure is ``raht_fp_device.build_plan``'s, unchanged: blocks
+The structure is ``raht_plan.build_plan``'s, unchanged: blocks
 (``blk_gather``), each stage's row offsets, the 18-neighbour tables and
 the block-skip base (``en_base``); its Q15 coefficients are not read.
 The float path carries the integer subtree weights itself, summing the
@@ -38,46 +38,26 @@ Each kernel has its plain PyTorch version beside it (``truth_ref``,
 ``predict_ref``, ``inverse_ref``), with the launcher's signature;
 ``launchers_for`` takes them off a CUDA device, and ``PLAIN_LAUNCHERS``
 drives the card's orchestration through them on any device (the tests,
-on the CPU).  ``LAUNCHES`` counts
-the kernels' launches.  Nothing here is module state a call keeps: the
-host buffers belong to the call, so slices coded in threads may run the
-loop together.
+on the CPU).  ``_kernels.LAUNCHES`` counts the kernels' launches.
+Nothing here is module state a call keeps: the host buffers belong to
+the call, so slices coded in threads may run the loop together.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import numpy as np
 import torch
 
-from . import _kernels, raht_fp_device
-from .raht_fp_device import NBR_OCTANTS
+from . import _kernels, raht_plan
 
 _F64 = torch.float64
 _I64 = torch.int64
 
-# launches of each kernel (the plain versions add nothing); safe to
-# count from several threads
-LAUNCHES = {"raht_float_truth": 0, "raht_float_predict": 0,
-            "raht_float_inverse": 0}
-_COUNT_LOCK = threading.Lock()
-
 # the octants each neighbour offset j touches, as the kernel's bits
 _TOUCH = tuple(tuple(o for o in range(8) if (bits >> o) & 1)
-               for bits in NBR_OCTANTS)
-
-
-def reset_launch_counts() -> None:
-    with _COUNT_LOCK:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
-
-
-def _count(name):
-    with _COUNT_LOCK:
-        LAUNCHES[name] += 1
+               for bits in raht_plan.NBR_OCTANTS)
 
 
 # ---------------------------------------------------------------------
@@ -143,19 +123,16 @@ def _inverse(dc, acs, coefs):
     return v
 
 
-_FLAT = (("flat_z", 4), ("flat_y", 2), ("flat_x", 1))
-
-
 def _to_rows(acs, p):
     """AC grids -> the (pairs, C) rows of each stage in coded order."""
     return [ac.reshape(-1, ac.shape[-1])[p[k]] for ac, (k, _) in
-            zip(acs, _FLAT)]
+            zip(acs, raht_plan.FLAT_KEYS)]
 
 
 def _to_grids(rows, p, mp):
     """The stages' rows -> AC grids (0 at invalid pairs)."""
     out = []
-    for r, (k, width) in zip(rows, _FLAT):
+    for r, (k, width) in zip(rows, raht_plan.FLAT_KEYS):
         grid = r.new_zeros(mp * width, r.shape[-1])
         grid[p[k]] = r
         out.append(grid.reshape(mp, width, -1))
@@ -239,28 +216,6 @@ def inverse_ref(p, offsets, mp, recon_p, w_c, pred, deq, recon_c):
 # the kernels (csrc/raht_float_loop.cu)
 # ---------------------------------------------------------------------
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _ptrs(ts):
-    return (ctypes.c_void_p * len(ts))(*(_ptr(t) for t in ts))
-
-
-def _plan_ptrs(p, offsets):
-    """The 7 plan pointers of csrc/raht_float_loop.cu's plan_from."""
-    ts = [p["blk_gather"], *offsets, p["nbr_idx"], p["nbr_ok"],
-          p["en_base"]]
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("a plan tensor is not contiguous")
-    return _ptrs(ts)
-
-
-def _raise(rc, name):
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-
-
 def _cuda_truth(p, offsets, mp, vals, w_c, dc, w_p, rows):
     """Launch ``raht_float_truth`` (see ``truth_ref``)."""
     lib = _kernels.load()
@@ -268,17 +223,19 @@ def _cuda_truth(p, offsets, mp, vals, w_c, dc, w_p, rows):
     rows = [None] * 3 if rows is None else rows
     with torch.cuda.device(w_p.device):
         rc = lib.raht_float_truth_launch(
-            _plan_ptrs(p, offsets), mp, nc, _ptr(vals), _ptr(w_c), _ptr(dc),
-            w_p.data_ptr(), *(_ptr(r) for r in rows), _kernels.stream(w_p))
-    _raise(rc, "raht_float_truth")
-    _count("raht_float_truth")
+            raht_plan.float_plan_ptrs(p, offsets), mp, nc,
+            _kernels.ptr(vals), _kernels.ptr(w_c), _kernels.ptr(dc),
+            w_p.data_ptr(), *(_kernels.ptr(r) for r in rows),
+            _kernels.stream(w_p))
+    _kernels.launched("raht_float_truth", rc)
 
 
 def _cuda_predict(p, offsets, mp, recon_p, w_p, w_c, coarser, t0, weights,
                   truth, res, pred):
     """Launch ``raht_float_predict`` (see ``predict_ref``)."""
     lib = _kernels.load()
-    octs = (ctypes.c_uint8 * len(NBR_OCTANTS))(*NBR_OCTANTS)
+    octs = (ctypes.c_uint8 * len(raht_plan.NBR_OCTANTS))(
+        *raht_plan.NBR_OCTANTS)
     wts = (ctypes.c_double * 3)(*(float(x) for x in weights))
     truth = [None] * 3 if truth is None else truth
     res = [None] * 3 if res is None else res
@@ -286,12 +243,12 @@ def _cuda_predict(p, offsets, mp, recon_p, w_p, w_c, coarser, t0, weights,
                      else (coarser["cnt_p"], coarser["pidx"]))
     with torch.cuda.device(recon_p.device):
         rc = lib.raht_float_predict_launch(
-            _plan_ptrs(p, offsets), mp, recon_p.shape[1], recon_p.data_ptr(),
-            w_p.data_ptr(), _ptr(w_c), _ptr(g_cnt), _ptr(g_pidx), t0, wts,
-            _ptrs(truth), _ptrs(res), _ptrs(pred), octs,
-            _kernels.stream(recon_p))
-    _raise(rc, "raht_float_predict")
-    _count("raht_float_predict")
+            raht_plan.float_plan_ptrs(p, offsets), mp, recon_p.shape[1],
+            recon_p.data_ptr(), w_p.data_ptr(), _kernels.ptr(w_c),
+            _kernels.ptr(g_cnt), _kernels.ptr(g_pidx), t0, wts,
+            _kernels.ptrs(truth), _kernels.ptrs(res), _kernels.ptrs(pred),
+            octs, _kernels.stream(recon_p))
+    _kernels.launched("raht_float_predict", rc)
 
 
 def _cuda_inverse(p, offsets, mp, recon_p, w_c, pred, deq, recon_c):
@@ -299,11 +256,10 @@ def _cuda_inverse(p, offsets, mp, recon_p, w_c, pred, deq, recon_c):
     lib = _kernels.load()
     with torch.cuda.device(recon_c.device):
         rc = lib.raht_float_inverse_launch(
-            _plan_ptrs(p, offsets), mp, recon_c.shape[1], recon_p.data_ptr(),
-            _ptr(w_c), _ptrs(pred), _ptrs(deq), recon_c.data_ptr(),
-            _kernels.stream(recon_c))
-    _raise(rc, "raht_float_inverse")
-    _count("raht_float_inverse")
+            raht_plan.float_plan_ptrs(p, offsets), mp, recon_c.shape[1],
+            recon_p.data_ptr(), _kernels.ptr(w_c), _kernels.ptrs(pred),
+            _kernels.ptrs(deq), recon_c.data_ptr(), _kernels.stream(recon_c))
+    _kernels.launched("raht_float_inverse", rc)
 
 
 CUDA_LAUNCHERS = (_cuda_truth, _cuda_predict, _cuda_inverse)
@@ -320,25 +276,18 @@ def launchers_for(device):
 # ---------------------------------------------------------------------
 
 class _Frame:
-    """A brick's plan on ``device`` and its coded-order rows: the root's,
-    then per coded level gi (coarsest first) its z, y, x slices of one
-    (total, C) buffer, the level's three contiguous."""
+    """A brick's plan on ``device`` and its coded-order rows
+    (``raht_plan.CodedRows``: the root's, then per coded level gi,
+    coarsest first, its z, y, x slices of one (total, C) buffer)."""
 
     def __init__(self, codes: np.ndarray, depth: int, t1: int, device):
         self.device, self.depth = device, depth
         c = torch.as_tensor(np.ascontiguousarray(codes, dtype=np.int64),
                             device=device)
-        fp = raht_fp_device.build_plan(c, depth, t1)
+        fp = raht_plan.build_plan(c, depth, t1)
         self.plans, self.offsets, self.n_roots = \
             fp.plans, fp.offsets, fp.n_roots
-        bounds = [fp.n_roots]
-        for gi in range(depth):
-            bounds.extend(fp.pair_counts[depth - 1 - gi])
-        edges = np.concatenate([[0], np.cumsum(bounds)]).tolist()
-        cuts = [slice(a, b) for a, b in zip(edges[:-1], edges[1:])]
-        self.total, self.root = edges[-1], cuts[0]
-        self.levels = [tuple(cuts[1 + 3 * gi:4 + 3 * gi])
-                       for gi in range(depth)]
+        self.total, self.root, self.levels = fp.coded_rows()
 
     def plan(self, gi):
         """(plan index, plan, offsets, parent blocks, children, coarser

@@ -9,12 +9,12 @@ device codec, and the zrow stream is the same whichever codes it.
 
 The per-frame structure (block gathers, Q15 butterfly coefficients,
 18-neighbour tables, sqrt scales, pair masks, coded-order compaction
-indices) is the plan.  The host planner ``build_fp_plan``, numpy copied
-line for line from the reference module (its lines 38-153), is its spec
-and the CPU path, ``plans_to_torch`` carrying it over.  On a CUDA device
-``build_plan`` builds the same tensors there from the uploaded leaf
-codes: three launches of ``csrc/raht_fp_plan.cu`` and one host read of
-the counts (plain version ``build_plan_ref``).
+indices) is the plan, whose format ``ops/raht_plan.py`` owns.  The host
+planner ``build_fp_plan``, numpy copied line for line from the reference
+module (its lines 38-153), is its spec and the CPU path,
+``plans_to_torch`` carrying it over.  On a CUDA device
+``raht_plan.build_plan`` builds the same tensors there from the uploaded
+leaf codes.
 
   encode: truth bottom-up (block butterflies), then top-down per
   group: prediction from reconstructed parent means -> forward network
@@ -57,17 +57,16 @@ in range).
 from __future__ import annotations
 
 import ctypes
-import threading
 from dataclasses import dataclass
-from typing import List, NamedTuple
+from typing import List
 
 import numpy as np
 import torch
 
 from ..utils import timing
 from ..utils.device import resolve as resolve_device
-from . import _kernels, raht_fp
-from .raht import _NBR_OFFSETS, _offset_neighbor_codes, _TOUCH_TABLE
+from . import _kernels, raht_fp, raht_plan
+from .raht import _offset_neighbor_codes, _TOUCH_TABLE
 
 F = raht_fp.F
 QA = raht_fp.QA
@@ -337,11 +336,9 @@ def _gather_blocks(vals, p):
 def _compact(acz, acy, acx, p):
     """Padded AC grids -> (npairs, C) rows in zrow coded order per
     stage (the per-group emission order is z|y|x)."""
-    mp, _, c = acz.shape
-    z = acz.reshape(mp * 4, c)[p["flat_z"]]
-    y = acy.reshape(mp * 2, c)[p["flat_y"]]
-    x = acx.reshape(mp, c)[p["flat_x"]]
-    return z, y, x
+    c = acz.shape[2]
+    return tuple(ac.reshape(-1, c)[p[k]] for ac, (k, _) in
+                 zip((acz, acy, acx), raht_plan.FLAT_KEYS))
 
 
 # ---------------------------------------------------------------------
@@ -349,34 +346,12 @@ def _compact(acz, acy, acx, p):
 # stage, parallel/slices.py:sharded_raht_fp_blocks)
 # ---------------------------------------------------------------------
 
-# launches of each kernel (the plain versions add nothing); safe to
-# count from several threads
-LAUNCHES = {"fwd_blocks_int": 0, "raht_fp_truth_level": 0,
-            "raht_fp_group": 0, "raht_fp_plan": 0}
-_COUNT_LOCK = threading.Lock()
 # the most channels one launch takes (csrc/raht_fp_blocks.cu: kMaxRun);
 # more go through the kernel in runs, a launch each
 KERNEL_RUN_MAX = 4
 # the kernel's fast path: blocks whose weights are non-negative and sum
 # below this (csrc/raht_fp_blocks.cu: kFastLimit)
 FAST_WEIGHT_SUM = 1 << 22
-
-
-def reset_launch_counts() -> None:
-    with _COUNT_LOCK:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
-
-
-def isqrt64_dev(x: torch.Tensor) -> torch.Tensor:
-    """floor(sqrt(x)) of int64 x, identical to ``raht_fp.isqrt64``: a
-    float64 seed truncated, then two integer corrections (reference
-    ``isqrt64_dev``, ops/raht_fp_device.py:292-300)."""
-    y = torch.sqrt(x.to(torch.float64)).to(_I64)
-    for _ in range(2):
-        y = torch.where((y + 1) * (y + 1) <= x, y + 1, y)
-        y = torch.where(y * y > x, y - 1, y)
-    return y.clamp(min=0)
 
 
 def fwd_blocks_int_ref(blk_v: torch.Tensor, blk_w: torch.Tensor):
@@ -388,8 +363,8 @@ def fwd_blocks_int_ref(blk_v: torch.Tensor, blk_w: torch.Tensor):
     def stage(v, w):
         w0, w1 = w[:, 0::2], w[:, 1::2]
         ws = (w0 + w1).clamp(min=1)
-        a = isqrt64_dev(_floordiv(w0 << 30, ws))
-        b = isqrt64_dev(_floordiv(w1 << 30, ws))
+        a = raht_plan.isqrt64_dev(_floordiv(w0 << 30, ws))
+        b = raht_plan.isqrt64_dev(_floordiv(w1 << 30, ws))
         return _mix_stage(v, w0, w1, a, b)
 
     vz, acz, wz = stage(blk_v, blk_w)
@@ -463,8 +438,8 @@ def fwd_blocks_int_mirror(blk_v: torch.Tensor, blk_w: torch.Tensor):
     def stage(v, w):
         w0, w1 = w[:, 0::2], w[:, 1::2]
         ws = (w0 + w1).clamp(min=1)
-        a = isqrt64_dev(_floordiv(w0 << 30, ws))
-        b = isqrt64_dev(_floordiv(w1 << 30, ws))
+        a = raht_plan.isqrt64_dev(_floordiv(w0 << 30, ws))
+        b = raht_plan.isqrt64_dev(_floordiv(w1 << 30, ws))
         af, bf = fast_pair_coeffs_mirror(torch.where(fast, w0, 0),
                                          torch.where(fast, w1, 0))
         return _mix_stage(v, w0, w1, torch.where(fast, af, a),
@@ -501,13 +476,6 @@ def _in_channel_runs(run, blk_v: torch.Tensor, blk_w: torch.Tensor):
         for o, p in zip(out, part):
             o[..., c0:c0 + n] = p
     return out
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and starting on 16 bytes (the kernel's TMA bulk
-    copies): a view at an odd word offset is copied."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def fwd_blocks_int(blk_v: torch.Tensor, blk_w: torch.Tensor):
@@ -550,14 +518,11 @@ def fwd_blocks_int(blk_v: torch.Tensor, blk_w: torch.Tensor):
             rc = lib.raht_fwd_blocks_int_launch(
                 v.data_ptr(), w.data_ptr(), *(t.data_ptr() for t in out),
                 nb, n, stream)
-        if rc != 0:
-            raise RuntimeError(f"raht_fwd_blocks_int launch failed: CUDA "
-                               f"error {rc}")
-        with _COUNT_LOCK:
-            LAUNCHES["fwd_blocks_int"] += 1
+        _kernels.launched("fwd_blocks_int", rc)
         return out
 
-    return _in_channel_runs(launch, _aligned(blk_v), _aligned(blk_w))
+    return _in_channel_runs(launch, _kernels.aligned(blk_v),
+                            _kernels.aligned(blk_w))
 
 
 def _truth_level_ref(vals, p):
@@ -573,9 +538,7 @@ def _inverse_group_pure(recon_p, rec_parts, p):
     c = recon_p.shape[-1]
     dev = recon_p.device
     grids = []
-    for key, k, rec in (("flat_z", 4, rec_parts[0]),
-                        ("flat_y", 2, rec_parts[1]),
-                        ("flat_x", 1, rec_parts[2])):
+    for (key, k), rec in zip(raht_plan.FLAT_KEYS, rec_parts):
         grid = torch.zeros((mp * k, c), dtype=_I64, device=dev)
         grid[p[key]] = rec
         grids.append(grid.reshape(mp, k, c))
@@ -629,12 +592,6 @@ def _dec_group_ref(recon_p, grand_p, qz, qy, qx, steps, p,
 # the closed loop's hand-written kernels (csrc/raht_fp_loop.cu)
 # ---------------------------------------------------------------------
 
-# the plan tensors a kernel reads, in the launcher's pointer order: the
-# butterflies' (what the truth kernel reads), the row offsets
-# (``row_offsets``), the prediction's
-BUTTERFLY_KEYS = ("blk_gather", "az", "bz", "vz", "sz", "ay", "by", "vy",
-                  "sy", "ax", "bx", "vx", "sx")
-PREDICTION_KEYS = ("sw_p", "sw_c", "nbr_idx", "nbr_ok", "en_base", "cnt_p")
 # raht_fp_group's mode bits
 MODE_DECODE = 1       # q rows in (else truth rows in, q rows out)
 MODE_ROOT = 2         # the parents are the roots: (de)quantise them first
@@ -642,57 +599,9 @@ MODE_FINAL = 4        # write (v + HALF) >> F
 MODE_HAVE_GRAND = 8   # gate the prediction on the grandparent counts
 MODE_Q32 = 16         # q rows out as int32 (else int64)
 # the group kernel's tile of parent blocks and its channel window
-# (csrc/raht_fp_loop.cu: kGT, kGMaxW), and the bound of its fast
-# division's numerators and divisors (kFastLim)
+# (csrc/raht_fp_loop.cu: kGT, kGMaxW)
 GROUP_TILE = 32
 GROUP_WINDOW = 4
-FAST_DIV_LIMIT = 1 << 51
-# bit o of entry j: neighbour offset j touches octant o
-NBR_OCTANTS = tuple(int(sum(1 << o for o in range(8) if _TOUCH_TABLE[o, j]))
-                    for j in range(_TOUCH_TABLE.shape[1]))
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _ptrs(ts):
-    return (ctypes.c_void_p * len(ts))(*(_ptr(t) for t in ts))
-
-
-def row_offsets(p):
-    """(off_z, off_y, off_x), each (mp,) int64: the zrow row of each
-    block's first valid pair of a stage, i.e. the valid pairs of the
-    blocks before it (``flat_z`` etc. list the pairs in that order)."""
-    out = []
-    for k, width in (("vz", 4), ("vy", 2), ("vx", 1)):
-        per = p[k].reshape(-1, width).sum(dim=1, dtype=_I64)
-        out.append(torch.cumsum(per, 0) - per)
-    return tuple(out)
-
-
-PLAN_NAMES = BUTTERFLY_KEYS + ("off_z", "off_y", "off_x") + PREDICTION_KEYS
-
-
-def kernel_plan(p, offsets):
-    """The 22 tensors a kernel reads, in the launcher's pointer order."""
-    return ([p[k] for k in BUTTERFLY_KEYS] + list(offsets)
-            + [p[k] for k in PREDICTION_KEYS])
-
-
-def _plan_ptrs(p, offsets):
-    ts = kernel_plan(p, offsets)
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("a plan tensor is not contiguous")
-    return _ptrs(ts)
-
-
-def _staged_plan_ptrs(p, offsets):
-    """``_plan_ptrs`` for the group kernel, which stages each plan tensor
-    with 16-byte copies: a tensor not on 16 bytes is copied (the copy
-    lives on the launch's stream, so freeing it after the launch is
-    safe)."""
-    return _ptrs([_aligned(t) for t in kernel_plan(p, offsets)])
 
 
 def _cuda_truth(p, offsets, mp, vals, shift, dc, z, y, x):
@@ -701,15 +610,11 @@ def _cuda_truth(p, offsets, mp, vals, shift, dc, z, y, x):
     lib = _kernels.load()
     with torch.cuda.device(vals.device):
         rc = lib.raht_fp_truth_level_launch(
-            _plan_ptrs(p, offsets), mp, vals.shape[1], vals.data_ptr(),
-            shift,
+            raht_plan.plan_ptrs(p, offsets), mp, vals.shape[1],
+            vals.data_ptr(), shift,
             dc.data_ptr(), z.data_ptr(), y.data_ptr(), x.data_ptr(),
             _kernels.stream(vals))
-    if rc != 0:
-        raise RuntimeError(f"raht_fp_truth_level launch failed: CUDA "
-                           f"error {rc}")
-    with _COUNT_LOCK:
-        LAUNCHES["raht_fp_truth_level"] += 1
+    _kernels.launched("raht_fp_truth_level", rc)
 
 
 def _cuda_group(p, offsets, mp, mode, recon_p, pf_p, grand_p, steps,
@@ -720,24 +625,24 @@ def _cuda_group(p, offsets, mp, mode, recon_p, pf_p, grand_p, steps,
     dev = recon_c.device
     lib = _kernels.load()
     ints = (ctypes.c_int64 * 4)(t0, *weights)
-    octs = (ctypes.c_uint8 * len(NBR_OCTANTS))(*NBR_OCTANTS)
+    octs = (ctypes.c_uint8 * len(raht_plan.NBR_OCTANTS))(
+        *raht_plan.NBR_OCTANTS)
     with torch.cuda.device(dev):
         rc = lib.raht_fp_group_launch(
-            _staged_plan_ptrs(p, offsets), mp, steps.shape[0], mode,
-            _ptr(recon_p), _ptr(pf_p), _ptr(grand_p), steps.data_ptr(),
-            _ptrs(rows_in), _ptr(q_root_in), _ptrs(q_out), _ptr(q_root_out),
-            recon_c.data_ptr(), _ptr(pf_c), cnt_c.data_ptr(), ints, octs,
-            _ptr(stats), _kernels.stream(recon_c))
-    if rc != 0:
-        raise RuntimeError(f"raht_fp_group launch failed: CUDA error {rc}")
-    with _COUNT_LOCK:
-        LAUNCHES["raht_fp_group"] += 1
+            raht_plan.staged_plan_ptrs(p, offsets), mp, steps.shape[0], mode,
+            _kernels.ptr(recon_p), _kernels.ptr(pf_p), _kernels.ptr(grand_p),
+            steps.data_ptr(), _kernels.ptrs(rows_in),
+            _kernels.ptr(q_root_in), _kernels.ptrs(q_out),
+            _kernels.ptr(q_root_out), recon_c.data_ptr(), _kernels.ptr(pf_c),
+            cnt_c.data_ptr(), ints, octs, _kernels.ptr(stats),
+            _kernels.stream(recon_c))
+    _kernels.launched("raht_fp_group", rc)
 
 
 def _group_shapes(p):
     """(mp, mc, (nz, ny, nx)) of a plan."""
     return (p["az"].shape[0], p["pidx"].shape[0],
-            tuple(p[k].shape[0] for k in ("flat_z", "flat_y", "flat_x")))
+            tuple(p[k].shape[0] for k, _ in raht_plan.FLAT_KEYS))
 
 
 def _truth_level(vals, p):
@@ -755,7 +660,7 @@ def _truth_level(vals, p):
     dc = vals.new_empty(mp, c)
     z, y, x = (vals.new_empty(n, c) for n in counts)
     if mp:
-        _cuda_truth(p, row_offsets(p), mp, vals, 0, dc, z, y, x)
+        _cuda_truth(p, raht_plan.row_offsets(p), mp, vals, 0, dc, z, y, x)
     return dc, z, y, x
 
 
@@ -771,7 +676,7 @@ def _group_call(recon_p, grand_p, rows, steps, p, t0, weights, have_grand,
     mode = (MODE_DECODE if decode else 0) | \
         (MODE_HAVE_GRAND if have_grand else 0)
     if mp:
-        _cuda_group(p, row_offsets(p), mp, mode, recon_p, None,
+        _cuda_group(p, raht_plan.row_offsets(p), mp, mode, recon_p, None,
                     grand_p.contiguous() if have_grand else None, steps,
                     rows, None, q, None, recon_c, None, cnt, t0, weights)
     return q, recon_c, cnt
@@ -810,52 +715,12 @@ def _dec_group(recon_p, grand_p, qz, qy, qx, steps, p,
 
 # ---- the kernels' arithmetic in plain torch (tests only) ---------------
 
-def floordiv_mirror(a, b):
-    """The kernels' ``floordiv``: C's truncating quotient, one less where
-    the remainder is non-zero and its sign differs from the divisor's
-    (b > 0 here, so: a negative numerator with a remainder)."""
-    q = torch.div(a, b, rounding_mode="trunc")
-    r = a - q * b
-    return q - ((r != 0) & ((r < 0) != (b < 0))).to(_I64)
-
-
-def fast_rcp_mirror(d):
-    """The group kernel's ``fast_rcp``: float64 1 / d (IEEE, correctly
-    rounded) where 1 <= d <= ``FAST_DIV_LIMIT``, else 0 (the general
-    path)."""
-    ok = (d >= 1) & (d <= FAST_DIV_LIMIT)
-    return torch.where(ok, 1.0 / torch.where(ok, d, 1).to(torch.float64),
-                       0.0)
-
-
-def fdiv_mirror(a, d, r, count=None, use=None):
-    """The group kernel's ``fdiv``: floor(a / d) for d >= 1 with r =
-    ``fast_rcp_mirror(d)``.  Fast path where r != 0 and |a| <= 2^51: the
-    float64 product a * r (round to nearest), floored, then one step
-    against the remainder a - q d; elsewhere ``floordiv_mirror`` on int64
-    (the general path).  ``count``: a (2,) int64 tensor that the fast and
-    general divisions among ``use`` (default: all) are added to."""
-    a, d, r = torch.broadcast_tensors(a, d, r)
-    fast = (r != 0) & (a >= -FAST_DIV_LIMIT) & (a <= FAST_DIV_LIMIT)
-    af = torch.where(fast, a, 0)
-    df = torch.where(fast, d, 1)
-    q = torch.floor(af.to(torch.float64) * r).to(_I64)
-    rem = af - q * df
-    q = q - (rem < 0).to(_I64) + (rem >= df).to(_I64)
-    gen = floordiv_mirror(torch.where(fast, 0, a), torch.where(fast, 1, d))
-    if count is not None:
-        use = torch.ones_like(fast) if use is None else use
-        count[0] += (fast & use).sum()
-        count[1] += (~fast & use).sum()
-    return torch.where(fast, q, gen)
-
-
 def quant_f_mirror(res, st, d3, r3, count=None, use=None):
     """The group kernel's ``quant_f``: ``_quant`` of res (n, W) with the
     channels' steps st, 3 st and ``fast_rcp_mirror(3 st)`` through
-    ``fdiv_mirror``."""
+    ``fdiv_mirror`` (``raht_plan``'s)."""
     a = res.abs()
-    q = fdiv_mirror(24 * a + st, d3, r3, count, use)
+    q = raht_plan.fdiv_mirror(24 * a + st, d3, r3, count, use)
     return torch.where(res < 0, -q, q)
 
 
@@ -969,20 +834,20 @@ def group_mirror(p, offsets, mp, mode, recon_p, pf_p, grand_p, steps,
     per child 1 / sw_c (the prologue); per (block, channel) the weight
     sums and the prediction, its forward network, the q rows, the
     inverse network and the children's rows.  Every
-    division goes through ``fdiv_mirror``."""
+    division goes through ``raht_plan.fdiv_mirror``."""
     w_self, w_face, w_edge = weights
     decode, root = mode & MODE_DECODE, mode & MODE_ROOT
     dev = steps.device
     nc = steps.shape[0]
     win = min(nc, GROUP_WINDOW)
     count = torch.zeros(2, dtype=_I64, device=dev)
-    plan = dict(zip(PLAN_NAMES, kernel_plan(p, offsets)))
+    plan = dict(zip(raht_plan.PLAN_NAMES, raht_plan.kernel_plan(p, offsets)))
     touch = torch.tensor([[(m >> o) & 1 for o in range(8)]
-                          for m in NBR_OCTANTS], dtype=torch.bool,
+                          for m in raht_plan.NBR_OCTANTS], dtype=torch.bool,
                          device=dev)                        # (18, 8)
     wj = torch.tensor([w_face] * 6 + [w_edge] * 12, dtype=_I64, device=dev)
     d3 = 3 * steps
-    r3 = fast_rcp_mirror(d3)
+    r3 = raht_plan.fast_rcp_mirror(d3)
 
     def parent_recon(r, cs, use):
         st, d, rc = steps[cs], d3[cs], r3[cs]
@@ -1017,8 +882,9 @@ def group_mirror(p, offsets, mp, mode, recon_p, pf_p, grand_p, steps,
                 got = pf_p[r][:, cs]
             else:
                 sw = p["sw_p"][r][:, None]
-                got = fdiv_mirror(parent_recon(r, cs, use) << QA, sw,
-                                  fast_rcp_mirror(sw), count, use)
+                got = raht_plan.fdiv_mirror(
+                    parent_recon(r, cs, use) << QA, sw,
+                    raht_plan.fast_rcp_mirror(sw), count, use)
             nmean = torch.zeros(rows, 19, len(cs), dtype=_I64, device=dev)
             nmean[rok] = got
             if c0 == 0:                  # the prologue, one a block
@@ -1030,16 +896,16 @@ def group_mirror(p, offsets, mp, mode, recon_p, pf_p, grand_p, steps,
                 en = t["en_base"]
                 if mode & MODE_HAVE_GRAND:
                     en = en & (grand_p[b0:b0 + rows] >= t0)
-                rw = fast_rcp_mirror(wsum)
-                rs = fast_rcp_mirror(swc)
+                rw = raht_plan.fast_rcp_mirror(wsum)
+                rs = raht_plan.fast_rcp_mirror(swc)
             # per (block, channel): the prediction
             kw = torch.where(keep, wj, 0)[..., None]        # (rows, 18, 1)
             s = ((nmean[:, :18] * kw)[:, :, None, :]
                  * touch[None, :, :, None]).sum(1)          # (rows, 8, W)
             self_ = nmean[:, 18, None, :] * w_self
             use = (child & en[:, None])[..., None].expand(-1, -1, len(cs))
-            pm = fdiv_mirror(self_ + s, wsum[..., None], rw[..., None],
-                             count, use)
+            pm = raht_plan.fdiv_mirror(self_ + s, wsum[..., None],
+                                       rw[..., None], count, use)
             pred = torch.where(use, (pm * swc[..., None] + QAH) >> QA, 0)
             cf = _coef_mirror(t)
             rows_k = _pair_rows_mirror((t["off_z"], t["off_y"], t["off_x"]),
@@ -1070,7 +936,7 @@ def group_mirror(p, offsets, mp, mode, recon_p, pf_p, grand_p, steps,
             recon_c[dst[:, None], cols] = ((val + HALF) >> F) \
                 if mode & MODE_FINAL else val
             if pf_c is not None:
-                pf_c[dst[:, None], cols] = fdiv_mirror(
+                pf_c[dst[:, None], cols] = raht_plan.fdiv_mirror(
                     val << QA, swc[child][:, None], rs[child][:, None], count)
             if c0 == 0:
                 cnt_c[dst] = t["cnt_p"][:, None].expand(-1, 8)[child]
@@ -1082,270 +948,13 @@ CUDA_LAUNCHERS = (_cuda_truth, _cuda_group)
 MIRROR_LAUNCHERS = (truth_level_mirror, group_mirror)
 
 
-# ---------------------------------------------------------------------
-# the planner on the card (csrc/raht_fp_plan.cu)
-# ---------------------------------------------------------------------
-
-class FramePlan(NamedTuple):
-    """A frame's plan as ``DeviceFpRaht`` holds it: ``plans``, finest
-    group first, each a dict of the keys and tensors ``plans_to_torch``
-    gives; ``offsets``, each plan's ``row_offsets``; ``pair_counts``, (nz,
-    ny, nx) a plan; ``n_roots``."""
-    plans: list
-    offsets: list
-    pair_counts: list
-    n_roots: int
-
-
-# the kernels' buffers in their launcher's pointer order (csrc/
-# raht_fp_plan.cu: Buf): name, rows ("c": a level's children, "b": its
-# parent blocks, "z", "y", "x": its pairs of that stage), width, bool.
-# Each holds every level; a name starting with "_" is the kernels' own.
-CARD_BUFS = (
-    ("pidx", "c", 1, False), ("oct", "c", 1, False), ("sw_c", "c", 1, False),
-    ("_ls", "c", 1, False),
-    ("blk_gather", "b", 8, False), ("az", "b", 4, False),
-    ("bz", "b", 4, False), ("vz", "b", 4, True), ("sz", "b", 4, False),
-    ("ay", "b", 2, False), ("by", "b", 2, False), ("vy", "b", 2, True),
-    ("sy", "b", 2, False), ("ax", "b", 1, False), ("bx", "b", 1, False),
-    ("vx", "b", 1, True), ("sx", "b", 1, False), ("sw_p", "b", 1, False),
-    ("off_z", "b", 1, False), ("off_y", "b", 1, False),
-    ("off_x", "b", 1, False), ("nbr_idx", "b", 18, False),
-    ("nbr_ok", "b", 18, True), ("cnt_p", "b", 1, False),
-    ("en_base", "b", 1, True), ("_cstart", "b", 1, False),
-    ("_pc", "b", 1, False),
-    ("flat_z", "z", 1, False), ("flat_y", "y", 1, False),
-    ("flat_x", "x", 1, False),
-)
-# the deepest tree of 63-bit Morton codes (csrc/raht_fp_plan.cu:
-# kMaxDepth), and the rows each level's view starts on a multiple of
-PLAN_MAX_DEPTH = 21
-PLAN_ROW_ALIGN = 16
-
-
-def _check_plan_codes(codes, depth):
-    if codes.dtype != _I64 or codes.dim() != 1:
-        raise TypeError(f"need (N,) int64 codes, got {codes.dtype} "
-                        f"{tuple(codes.shape)}")
-    if not 0 <= depth <= PLAN_MAX_DEPTH:
-        raise ValueError(f"depth {depth} outside [0, {PLAN_MAX_DEPTH}]")
-
-
-def _unsorted(what):
-    return ValueError(f"the planner needs distinct non-negative leaf codes "
-                      f"in increasing order ({what})")
-
-
-def _msb_ref(x):
-    """floor(log2(x)) of int64 x >= 1 (the kernel's 63 - clz)."""
-    r = torch.zeros_like(x)
-    for s in (32, 16, 8, 4, 2, 1):
-        big = (x >> s) > 0
-        r = r + big.to(_I64) * s
-        x = torch.where(big, x >> s, x)
-    return r
-
-
-def _stage_ref(w):
-    """One stage's pairs from its (mp, 2k) cell weights, with the
-    kernel's division: (a, b, valid, single source, merged weights)."""
-    w0, w1 = w[:, 0::2], w[:, 1::2]
-    ws = (w0 + w1).clamp(min=1)
-    r = fast_rcp_mirror(ws)
-    a = isqrt64_dev(fdiv_mirror(w0 << 30, ws, r))
-    b = isqrt64_dev(fdiv_mirror(w1 << 30, ws, r))
-    s = torch.where(w0 > 0, 0, torch.where(w1 > 0, 1, -1))
-    return a, b, (w0 > 0) & (w1 > 0), s, w0 + w1
-
-
-# raht.py's per-axis Morton masks and units, in (dx, dy, dz) order
-_AXES = tuple((0x1249249249249249 << (2 - a), 1 << (2 - a)) for a in range(3))
-
-
-def _neighbours_ref(pc, level_dims):
-    """``_offset_neighbor_codes`` in torch: (mp, 18) lower-bound rows of
-    the 18 masked Morton steps of the sorted codes ``pc`` and their hits.
-    (c | ~mask) is negative and (c & mask) non-negative, so no step
-    overflows int64."""
-    mp = pc.numel()
-    if mp == 0:
-        return (pc.new_zeros(0, len(_NBR_OFFSETS)),
-                torch.zeros(0, len(_NBR_OFFSETS), dtype=torch.bool,
-                            device=pc.device))
-    bits = min(3 * max(level_dims, 0), 62)
-    outside = ~((1 << bits) - 1)
-    codes, oks = [], []
-    for off in _NBR_OFFSETS:
-        c = pc
-        ok = torch.ones_like(pc, dtype=torch.bool)
-        for d, (mask, unit) in zip(off, _AXES):
-            if d > 0:
-                c = (((c | ~mask) + unit) & mask) | (c & ~mask)
-                ok = ok & ((c & outside) == 0)
-            elif d < 0:
-                ok = ok & ((c & mask) != 0)
-                c = (((c & mask) - unit) & mask) | (c & ~mask)
-        codes.append(c)
-        oks.append(ok)
-    nc = torch.stack(codes, 1)
-    idx = torch.searchsorted(pc, nc).clamp(max=mp - 1)
-    return idx, torch.stack(oks, 1) & (pc[idx] == nc)
-
-
-def build_plan_ref(codes: torch.Tensor, depth: int,
-                   t1: int = raht_fp._PRED_T1) -> FramePlan:
-    """Plain version of ``build_plan``: the passes of
-    ``csrc/raht_fp_plan.cu`` as PyTorch ops on ``codes`` (N,) int64,
-    distinct and increasing, on any device.  Leaf i > 0 first differs
-    from leaf i - 1 at bit m: it opens a node at every level g <= h =
-    min(m / 3, depth) (leaf 0 at all) and closes one butterfly pair, at
-    level m / 3 and stage m % 3 (count); ranks among those leaves give
-    every row (scatter); each parent block then takes its children's
-    weights, coefficients and neighbours (blocks)."""
-    _check_plan_codes(codes, depth)
-    n = codes.numel()
-    if n and (codes[0] < 0 or bool((codes[1:] <= codes[:-1]).any())):
-        raise _unsorted("plain version")
-    if depth == 0:
-        return FramePlan([], [], [], n)
-    m = torch.full((n,), -1, dtype=_I64, device=codes.device)
-    if n > 1:
-        m[1:] = _msb_ref(codes[1:] ^ codes[:-1])
-    h = torch.clamp(torch.div(m, 3, rounding_mode="floor"), max=depth)
-    h[:1] = depth
-    opens = [h >= g for g in range(depth + 1)]
-    first = [torch.nonzero(o).flatten() for o in opens]   # nodes' 1st leaf
-    plans, offsets, pair_counts = [], [], []
-    for g in range(depth):
-        ls, lp = first[g], first[g + 1]
-        mc, mp = ls.numel(), lp.numel()
-        upto = torch.cumsum(opens[g + 1].to(_I64), 0)   # parents opened
-        pidx = upto[ls] - 1
-        oct_ = (codes[ls] >> (3 * g)) & 7
-        p = {"pidx": pidx, "oct": oct_}
-        offs = []
-        for st, (key, width, shift) in enumerate(
-                (("flat_z", 4, 1), ("flat_y", 2, 2), ("flat_x", 1, 3))):
-            closes = (m == 3 * g + st).to(_I64)
-            offs.append((torch.cumsum(closes, 0) - closes)[lp])
-            at = torch.nonzero(closes).flatten()
-            p[key] = (upto[at] - 1) * width + \
-                (((codes[at] >> (3 * g)) & 7) >> shift)
-        w = torch.diff(ls, append=ls.new_full((1,), n))
-        gather = torch.full((mp, 8), -1, dtype=_I64, device=codes.device)
-        gather[pidx, oct_] = torch.arange(mc, dtype=_I64,
-                                          device=codes.device)
-        blk_w = torch.where(gather >= 0, w[gather.clamp(min=0)], 0)
-        p["az"], p["bz"], p["vz"], p["sz"], wz = _stage_ref(blk_w)
-        p["ay"], p["by"], p["vy"], p["sy"], wy = _stage_ref(wz)
-        ax, bx, vx, sx, wx = _stage_ref(wy)
-        p.update(ax=ax[:, 0], bx=bx[:, 0], vx=vx[:, 0], sx=sx[:, 0],
-                 blk_gather=gather, sw_c=isqrt64_dev(w << 30),
-                 sw_p=isqrt64_dev(wx[:, 0] << 30))
-        p["nbr_idx"], p["nbr_ok"] = _neighbours_ref(
-            codes[lp] >> (3 * (g + 1)), depth - 1 - g)
-        p["cnt_p"] = 1 + p["nbr_ok"].sum(dim=1)
-        p["en_base"] = p["cnt_p"] >= t1
-        plans.append(p)
-        offsets.append(tuple(offs))
-        pair_counts.append(tuple(p[k].numel()
-                                 for k in ("flat_z", "flat_y", "flat_x")))
-    return FramePlan(plans, offsets, pair_counts, first[depth].numel())
-
-
-def _row_bases(rows):
-    """Each level's first row, every level starting on a multiple of
-    ``PLAN_ROW_ALIGN`` rows, and the rows of all."""
-    padded = [-(-r // PLAN_ROW_ALIGN) * PLAN_ROW_ALIGN for r in rows]
-    ends = np.cumsum([0] + padded).tolist()
-    return ends[:-1], ends[-1]
-
-
-def _plan_kernels(codes, depth, t1):
-    """``build_plan`` on a CUDA tensor: three launches, one host read of
-    the counts."""
-    dev, n = codes.device, codes.numel()
-    nv = 4 * depth + 1
-    lib = _kernels.load()
-    stream = _kernels.stream(codes)
-    if n:
-        scratch = torch.empty(lib.raht_fp_plan_scratch_words(n, depth),
-                              dtype=_I64, device=dev)
-        with torch.cuda.device(dev):
-            rc = lib.raht_fp_plan_count_launch(codes.data_ptr(), n, depth,
-                                               scratch.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"raht_fp_plan count launch failed: CUDA "
-                               f"error {rc}")
-        with _COUNT_LOCK:
-            LAUNCHES["raht_fp_plan"] += 1
-        fault, *tot = scratch[1:2 + nv].tolist()   # the one synchronisation
-        if fault:
-            raise _unsorted("card")
-    else:
-        tot = [0] * nv
-    nodes = tot[:depth + 1]
-    pair_counts = [tuple(tot[depth + 1 + 3 * g:depth + 4 + 3 * g])
-                   for g in range(depth)]
-    rows = {"c": nodes[:depth], "b": nodes[1:]}
-    rows.update({k: [pc[s] for pc in pair_counts]
-                 for s, k in enumerate("zyx")})
-    bases = {k: _row_bases(r) for k, r in rows.items()}
-    bufs = [torch.empty((bases[kind][1], w) if w > 1 else bases[kind][1],
-                        dtype=torch.bool if flag else _I64, device=dev)
-            for _, kind, w, flag in CARD_BUFS]
-    if n:
-        pad = PLAN_MAX_DEPTH - depth
-        blk0 = np.cumsum([0] + nodes[1:]).tolist()
-        layout = (nodes + [0] * pad
-                  + [x for k in "cbzyx" for x in bases[k][0] + [0] * pad]
-                  + blk0 + [blk0[-1]] * pad)
-        with torch.cuda.device(dev):
-            rc = lib.raht_fp_plan_build_launch(
-                codes.data_ptr(), n, depth, t1, scratch.data_ptr(),
-                _ptrs(bufs), (ctypes.c_int64 * len(layout))(*layout), stream)
-        if rc != 0:
-            raise RuntimeError(f"raht_fp_plan build launch failed: CUDA "
-                               f"error {rc}")
-        with _COUNT_LOCK:
-            LAUNCHES["raht_fp_plan"] += 2
-    plans, offsets = [], []
-    for g in range(depth):
-        p = {}
-        for (name, kind, _, _), buf in zip(CARD_BUFS, bufs):
-            if name[0] != "_":
-                base = bases[kind][0][g]
-                p[name] = buf[base:base + rows[kind][g]]
-        offsets.append((p.pop("off_z"), p.pop("off_y"), p.pop("off_x")))
-        plans.append(p)
-    return FramePlan(plans, offsets, pair_counts, nodes[depth])
-
-
-def build_plan(codes: torch.Tensor, depth: int,
-               t1: int = raht_fp._PRED_T1) -> FramePlan:
-    """The frame's plan from its leaf codes ``codes`` (N,) int64, distinct
-    and increasing, at ``depth`` <= 21: every tensor equal to
-    ``plans_to_torch(build_fp_plan(...))`` and ``row_offsets``, and the
-    counts ``DeviceFpRaht`` needs, on the codes' device.  A CUDA tensor
-    launches the three passes of ``csrc/raht_fp_plan.cu`` (counting, one
-    host read of the counts, scatter, blocks; every tensor 16-byte
-    aligned) or raises; a CPU tensor runs ``build_plan_ref``.  Codes out
-    of order, repeated or negative raise ``ValueError``."""
-    if not _kernels.on_card(codes):
-        return build_plan_ref(codes, depth, t1)
-    _check_plan_codes(codes, depth)
-    if depth == 0:
-        return FramePlan([], [], [], codes.numel())
-    return _plan_kernels(codes.contiguous(), depth, t1)
-
-
 class DeviceFpRaht:
     """Per-frame device codec state: the frame's plan, then
     encode()/decode() run the closed loop on ``device`` (default: the
     current CUDA device; ``NoDeviceError`` without one).  On a CUDA
     device the plan is built there from the uploaded codes
-    (``build_plan``'s kernels); elsewhere ``build_fp_plan`` builds it on
-    the host and ``plans_to_torch`` carries it over."""
+    (``raht_plan.build_plan``'s kernels); elsewhere ``build_fp_plan``
+    builds it on the host and ``plans_to_torch`` carries it over."""
 
     def __init__(self, leaf_codes: np.ndarray, depth: int, steps_q16,
                  thresholds=(raht_fp._PRED_T0, raht_fp._PRED_T1),
@@ -1363,35 +972,25 @@ class DeviceFpRaht:
                 codes = torch.as_tensor(np.asarray(leaf_codes, np.int64),
                                         device=self.device)
             with timing.span("raht.plan.build"):
-                plan = build_plan(codes, depth, self.t1)
+                plan = raht_plan.build_plan(codes, depth, self.t1)
             timing.count("raht.plan.device_levels", depth)
         else:
             with timing.span("raht.plan.build"):
                 host_plans = build_fp_plan(leaf_codes, depth, thresholds)
             with timing.span("raht.plan.upload"):
                 plans = plans_to_torch(host_plans, self.device)
-                offsets = [row_offsets(p) for p in plans]
-            plan = FramePlan(
+                offsets = [raht_plan.row_offsets(p) for p in plans]
+            plan = raht_plan.FramePlan(
                 plans, offsets,
                 [(hp.flat_z.size, hp.flat_y.size, hp.flat_x.size)
                  for hp in host_plans],
                 host_plans[-1].mp if host_plans else leaf_codes.shape[0])
         self.plans, self.offsets, self.pair_counts, self.n_roots = plan
+        self.rows = plan.coded_rows()     # where each q row lies
 
     def _group_kw(self, gi):
         return dict(t0=self.t0, t1=self.t1, weights=self.weights,
                     have_grand=gi > 0)
-
-    def _rows(self):
-        """The coded-order q rows: (n_roots, then per coded group gi the
-        z, y, x row slices) of one (total, C) buffer."""
-        bounds = [self.n_roots]
-        for gi in range(self.depth):
-            bounds.extend(self.pair_counts[self.depth - 1 - gi])
-        edges = np.concatenate([[0], np.cumsum(bounds)]).tolist()
-        cuts = [slice(a, b) for a, b in zip(edges[:-1], edges[1:])]
-        return edges[-1], cuts[0], [tuple(cuts[1 + 3 * gi:4 + 3 * gi])
-                                    for gi in range(self.depth)]
 
     def encode(self, values: np.ndarray, emit):
         """values (N, C) ints.  emit(q_rows int32 (m, C)) is called in
@@ -1405,8 +1004,7 @@ class DeviceFpRaht:
         if self.device.type == "cuda" and self.depth > 0:
             recon, qbuf = self._encode_kernels(vals, CUDA_LAUNCHERS)
             host = qbuf.cpu().numpy()
-            _, root, groups = self._rows()
-            for cut in [root] + [c for grp in groups for c in grp]:
+            for cut in self.rows.slices():
                 emit(host[cut])
             return recon
         return self._encode_plain(vals, emit)
@@ -1457,7 +1055,7 @@ class DeviceFpRaht:
         (total, C) int64 buffer in coded order.  Returns (buffer, the
         roots' DC (n_roots, C))."""
         truth_launch = launchers[0]
-        total, _, groups = self._rows()
+        total, _, groups = self.rows
         c = vals.shape[1]
         truth = vals.new_empty(total, c)
         cur, shift = vals.contiguous(), F
@@ -1476,7 +1074,7 @@ class DeviceFpRaht:
         children's Q13 means, the q rows land as int32 in one (total, C)
         buffer in coded order.  Returns (reconstruction, q buffer)."""
         group_launch = launchers[1]
-        total, root_rows, groups = self._rows()
+        total, root_rows, groups = self.rows
         c = root.shape[1]
         qbuf = torch.empty((total, c), dtype=torch.int32, device=root.device)
         recon, pf, grand = root, None, None
@@ -1502,9 +1100,7 @@ class DeviceFpRaht:
         values on the device.  The host entropy-decodes every row up
         front and uploads them in ONE copy; on a CUDA device the loop is
         the kernels' (``_decode_kernels``), else the plain versions'."""
-        counts = [self.n_roots]
-        for gi in range(self.depth):
-            counts.extend(self.pair_counts[self.depth - 1 - gi])
+        counts = [c.stop - c.start for c in self.rows.slices()]
         host = np.concatenate(
             [np.asarray(read_q(m), dtype=np.int64).reshape(m, ncomp)
              for m in counts], axis=0)
@@ -1531,7 +1127,7 @@ class DeviceFpRaht:
         dequantising the roots, each handing the next its children's
         Q13 means, the last writing (v + HALF) >> F."""
         _, group_launch = launchers
-        _, root_rows, groups = self._rows()
+        _, root_rows, groups = self.rows
         c = rows.shape[1]
         recon, pf, grand = None, None, None
         for gi in range(self.depth):

@@ -30,14 +30,12 @@ and to the plain version.
 u32 rANS states are held in int64 tensors; the plain versions mask
 with ``0xFFFFFFFF`` where the reference's uint32 arithmetic would wrap.
 
-``LAUNCHES`` counts kernel launches per kernel (a launch adds one, the
-plain versions add nothing), so a run can show it went through them.
-It is safe to count from several threads (the CLI's slice workers).
+``_kernels.LAUNCHES`` counts kernel launches per kernel (a launch adds
+one, the plain versions add nothing), so a run can show it went through
+them.
 """
 
 from __future__ import annotations
-
-import threading
 
 import numpy as np
 import torch
@@ -51,21 +49,6 @@ N_CTX = 2048                    # child_idx(3b) << 8 | parent_occupancy
 U32 = 0xFFFFFFFF
 UPD_TILES = 4                   # tiles of K symbols between table refreshes
 EMIT_TABLE = M + 4              # the emission kernel's magic numbers, padded
-
-LAUNCHES = {"table_pass": 0, "encode_emit": 0, "decode_level": 0}
-_COUNT_LOCK = threading.Lock()
-
-
-def reset_launch_counts() -> None:
-    with _COUNT_LOCK:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
-
-
-def _count(name: str) -> None:
-    with _COUNT_LOCK:
-        LAUNCHES[name] += 1
-
 
 def _ceil_div(a, b):
     return (a + b - 1) // b
@@ -389,12 +372,6 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _launched(name, rc):
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    _count(name)
-
-
 def table_pass(occ2: torch.Tensor, ctx2: torch.Tensor, counts, K: int):
     """The encoder's forward table pass; see ``table_pass_ref``.  The
     kernel runs one CTA per context row over ``table_pass_groups``, each
@@ -421,7 +398,7 @@ def table_pass(occ2: torch.Tensor, ctx2: torch.Tensor, counts, K: int):
             sym.data_ptr(), win.data_ptr(), pos.data_ptr(),
             row_off.data_ptr(), f_steps.data_ptr(), c_steps.data_ptr(),
             hist.data_ptr(), _stream(dev))
-    _launched("table_pass", rc)
+    _kernels.launched("table_pass", rc)
     return f_steps, c_steps, hist
 
 
@@ -459,7 +436,7 @@ def encode_emit(f_steps: torch.Tensor, c_steps: torch.Tensor,
             f_steps.data_ptr(), c_steps.data_ptr(), nvalid.data_ptr(),
             magic.data_ptr(), states.data_ptr(), words.data_ptr(),
             flags.data_ptr(), G, K, _stream(dev))
-    _launched("encode_emit", rc)
+    _kernels.launched("encode_emit", rc)
     return states, words, flags
 
 
@@ -504,7 +481,7 @@ def decode_level(c_flat: torch.Tensor, ctx_row: torch.Tensor,
             ctx_row.data_ptr(), words.data_ptr(), words.shape[0],
             states.data_ptr(), cursor.data_ptr(), syms.data_ptr(), int(count),
             K, _stream(dev))
-    _launched("decode_level", rc)
+    _kernels.launched("decode_level", rc)
     return None
 
 
@@ -519,8 +496,7 @@ def emit_magic_table(device) -> torch.Tensor:
     lib = _kernels.load()
     with torch.cuda.device(dev):
         rc = lib.rans_emit_table_launch(magic.data_ptr(), _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"emit table launch failed: CUDA error {rc}")
+    _kernels.launched("rans_emit_table", rc, 0)
     return magic[:M + 1].to(torch.int64) & U32
 
 
@@ -537,7 +513,6 @@ def emit_chain_probe(device, f: int = 1000, c: int = 5000,
     with torch.cuda.device(dev):
         rc = lib.rans_emit_chain_probe_launch(f, c, nsteps, out.data_ptr(),
                                               _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"emit chain probe failed: CUDA error {rc}")
+    _kernels.launched("rans_emit_chain_probe", rc, 0)
     cycles, ns, _ = out.tolist()
     return cycles / nsteps, ns / nsteps

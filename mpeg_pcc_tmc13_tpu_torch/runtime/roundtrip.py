@@ -32,7 +32,7 @@ from ..bitstream import entropy
 from ..models.attr_raht import qp_to_step_q16
 from ..models.attributes import AttributeContexts
 from ..models.geometry_octree import OctreeContexts
-from ..ops import raht_blocks, raht_device, raht_fp_device
+from ..ops import _kernels, raht_device, raht_fp_device
 from ..utils import morton
 from ..utils.device import resolve as resolve_device
 from . import device_pipeline as dp
@@ -92,6 +92,7 @@ class RoundTrip:
     raht_root: np.ndarray
     raht_recon: np.ndarray
     stage_s: Dict[str, float] = field(default_factory=dict)
+    # the float lane's block kernels' launches
     launches: Dict[str, int] = field(default_factory=dict)
     geom_stats: dp.PipelineStats = None
 
@@ -114,7 +115,7 @@ def device_roundtrip(uniq: np.ndarray, depth: int, colors: np.ndarray,
     n = uniq.size
     ncomp = colors.shape[1]
     times: Dict[str, float] = {}
-    before = dict(raht_blocks.LAUNCHES)
+    before = dict(_kernels.LAUNCHES)
 
     def clock(name, t0):
         _sync(device)
@@ -189,7 +190,8 @@ def device_roundtrip(uniq: np.ndarray, depth: int, colors: np.ndarray,
     recon_host = recon.cpu().numpy()
     clock("raht_inverse", t0)
 
-    launches = {k: v - before[k] for k, v in raht_blocks.LAUNCHES.items()}
+    launches = {k: _kernels.LAUNCHES[k] - before[k]
+                for k in ("fwd_blocks", "inv_blocks")}
     return RoundTrip(
         geom_payload=geom_payload, decoded_codes=decoded,
         attr_payload=attr_payload, q_rows=q_rows,

@@ -102,9 +102,11 @@ def plan_times(uniq, depth, dev, reps):
     upload."""
     import torch
 
+    from mpeg_pcc_tmc13_tpu_torch.ops import _kernels
     from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp_device as fpd
+    from mpeg_pcc_tmc13_tpu_torch.ops import raht_plan as rp
     codes = torch.as_tensor(uniq, device=dev)
-    got = fpd.build_plan(codes, depth)
+    got = rp.build_plan(codes, depth)
     host = fpd.build_fp_plan(uniq, depth)
     spec = fpd.plans_to_torch(host, dev)
     if got.n_roots != host[-1].mp or got.pair_counts != [
@@ -112,20 +114,20 @@ def plan_times(uniq, depth, dev, reps):
         raise AssertionError("build_plan's counts differ from the host's")
     for p, offs, q in zip(got.plans, got.offsets, spec):
         _same("build_plan", tuple(p[k] for k in q) + offs,
-              tuple(q.values()) + fpd.row_offsets(q))
+              tuple(q.values()) + rp.row_offsets(q))
     plan_bytes = codes.numel() * 8 + sum(
         t.numel() * t.element_size()
         for p, offs in zip(got.plans, got.offsets)
         for t in list(p.values()) + list(offs))
     out = {"plan_bytes": plan_bytes,
            "plan_bound_ms": plan_bytes / 3.35e9}
-    fpd.reset_launch_counts()
-    out["plan_ms"] = _wall_ms(lambda: fpd.build_plan(codes, depth), reps)
-    out["plan_launches"] = fpd.LAUNCHES["raht_fp_plan"] / reps
+    _kernels.reset_launch_counts()
+    out["plan_ms"] = _wall_ms(lambda: rp.build_plan(codes, depth), reps)
+    out["plan_launches"] = _kernels.LAUNCHES["raht_fp_plan"] / reps
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            fpd.build_plan(codes, depth)
+            rp.build_plan(codes, depth)
         torch.cuda.synchronize()
     for ev in prof.key_averages():
         for name in ("plan_count", "plan_scatter", "plan_blocks"):
@@ -138,11 +140,11 @@ def plan_times(uniq, depth, dev, reps):
     out["plan_upload_ms"] = _wall_ms(
         lambda: torch.as_tensor(uniq, device=dev), reps)
     out["plain_plan_ms"] = _wall_ms(
-        lambda: fpd.build_plan_ref(codes, depth), max(1, reps // 4))
+        lambda: rp.build_plan_ref(codes, depth), max(1, reps // 4))
     out["host_plan_ms"] = _wall_ms(lambda: fpd.build_fp_plan(uniq, depth),
                                    3)
     out["host_upload_ms"] = _wall_ms(
-        lambda: [fpd.row_offsets(p) for p in fpd.plans_to_torch(host, dev)],
+        lambda: [rp.row_offsets(p) for p in fpd.plans_to_torch(host, dev)],
         3)
     return out
 
@@ -245,8 +247,7 @@ def main(argv=None) -> int:
         raise AssertionError("raht_fp_group's q rows differ from the plain "
                              "loop's")
     rows = torch.as_tensor(host, device=dev)
-    _, root, groups = dv._rows()
-    cuts = [root] + [c for grp in groups for c in grp]
+    cuts = dv.rows.slices()
     _same("raht_fp_group (decode loop)",
           dv._decode_kernels(rows, fpd.CUDA_LAUNCHERS),
           dv._decode_plain(rows, [c.stop - c.start for c in cuts]))

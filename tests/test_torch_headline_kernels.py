@@ -46,6 +46,7 @@ from mpeg_pcc_tmc13_tpu.ops import raht_fp_device as jfp
 from mpeg_pcc_tmc13_tpu_torch.ops import _kernels
 from mpeg_pcc_tmc13_tpu_torch.ops import octree as tops
 from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp_device as tfp
+from mpeg_pcc_tmc13_tpu_torch.ops import raht_plan as rp
 from mpeg_pcc_tmc13_tpu_torch.utils import morton as tmorton
 
 torch.set_num_threads(2)
@@ -291,9 +292,9 @@ def test_floordiv_mirror_rounds_negative_numerators_down():
     b = torch.as_tensor(rng.integers(1, 1 << 31, 20000))
     a[:4] = torch.tensor([-7, -6, 7, 0])
     b[:4] = 3
-    assert torch.equal(tfp.floordiv_mirror(a, b),
+    assert torch.equal(rp.floordiv_mirror(a, b),
                        torch.div(a, b, rounding_mode="floor"))
-    assert tfp.floordiv_mirror(torch.tensor([-7]), torch.tensor([3])) == -3
+    assert rp.floordiv_mirror(torch.tensor([-7]), torch.tensor([3])) == -3
 
 
 def test_children_means_hand_on_to_the_next_group():
@@ -309,7 +310,7 @@ def test_row_offsets_put_pairs_in_zrow_order():
     codes, _, depth = _cloud("n2000", 1)
     for p in tfp.plans_to_torch(tfp.build_fp_plan(codes, depth), "cpu"):
         cf = tfp._coef_mirror(p)
-        rows = tfp._pair_rows_mirror(tfp.row_offsets(p), cf[2])
+        rows = tfp._pair_rows_mirror(rp.row_offsets(p), cf[2])
         for ks, flat, k in ((range(4), p["flat_z"], 4),
                             (range(4, 6), p["flat_y"], 2),
                             ((6,), p["flat_x"], 1)):
@@ -328,7 +329,7 @@ def _group_mirror_call(args, kw, decode):
     cnt = torch.empty(mc, dtype=torch.int64)
     mode = (tfp.MODE_DECODE if decode else 0) | \
         (tfp.MODE_HAVE_GRAND if kw["have_grand"] else 0)
-    tfp.group_mirror(p, tfp.row_offsets(p), mp, mode, args[0], None,
+    tfp.group_mirror(p, rp.row_offsets(p), mp, mode, args[0], None,
                      args[1] if kw["have_grand"] else None, args[5],
                      list(args[2:5]), None, q, None, recon_c, None, cnt,
                      kw["t0"], kw["weights"])
@@ -357,7 +358,7 @@ def test_truth_level_mirror_matches_ref(fp_case):
     for (cur, p), _ in truth:
         want = tfp._truth_level_ref(cur, p)
         got = [torch.empty_like(t) for t in want]
-        tfp.truth_level_mirror(p, tfp.row_offsets(p), p["az"].shape[0], cur,
+        tfp.truth_level_mirror(p, rp.row_offsets(p), p["az"].shape[0], cur,
                                0, *got)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
@@ -378,8 +379,7 @@ def test_mirror_launchers_drive_the_loop_like_the_plain_versions(name,
     recon_k, qbuf = dv._encode_kernels(torch.as_tensor(vals),
                                        tfp.MIRROR_LAUNCHERS)
     assert qbuf.dtype == torch.int32 and torch.equal(recon_k, recon)
-    _, root, groups = dv._rows()
-    cuts = [root] + [c for grp in groups for c in grp]
+    cuts = dv.rows.slices()
     assert len(cuts) == len(qs)
     assert all(np.array_equal(qbuf[c].numpy(), q) for c, q in zip(cuts, qs))
     rows = torch.as_tensor(np.concatenate(qs).astype(np.int64))
@@ -440,26 +440,24 @@ def test_cpu_tensor_takes_the_plain_version(name, monkeypatch):
     launch counted, the kernel library never loaded."""
     fn, ref, args, kw = _public_calls()[name]
     monkeypatch.setattr(_kernels, "load", _no_build)
-    tops.reset_launch_counts()
-    tfp.reset_launch_counts()
+    _kernels.reset_launch_counts()
     got, want = fn(*args, **kw), ref(*args, **kw)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert set(tops.LAUNCHES.values()) == {0}
-    assert set(tfp.LAUNCHES.values()) == {0}
+    assert set(_kernels.LAUNCHES.values()) == {0}
 
 
 def test_device_fp_raht_on_cpu_launches_nothing(monkeypatch):
     codes, vals, depth = _cloud("n300", 3)
     monkeypatch.setattr(_kernels, "load", _no_build)
-    tfp.reset_launch_counts()
+    _kernels.reset_launch_counts()
     dv = tfp.DeviceFpRaht(codes, depth, STEPS, device="cpu")
     qs = []
     dv.encode(vals, qs.append)
     it = iter(qs)
     dv.decode(lambda m: next(it), 3)
-    assert set(tfp.LAUNCHES.values()) == {0}
+    assert set(_kernels.LAUNCHES.values()) == {0}
 
 
 @pytest.mark.parametrize("fn", [
@@ -468,7 +466,7 @@ def test_device_fp_raht_on_cpu_launches_nothing(monkeypatch):
     lambda t: tops.decode_expand_stream(t.to(torch.uint8), t, 3, 8),
     lambda t: tops._expand_level(t, t, 8),
     lambda t: tfp._truth_level(t[:, None], {}),
-    lambda t: tfp.build_plan(t, 3),
+    lambda t: rp.build_plan(t, 3),
 ])
 def test_other_devices_raise(fn):
     with pytest.raises(ValueError, match="no kernel for device"):
@@ -483,8 +481,7 @@ def test_cuda_tensor_launches_the_kernels():
         pytest.skip("needs a CUDA card: the kernels have no CPU form")
     codes, vals, depth = _cloud("n2000", 3)
     dev = torch.device("cuda:0")
-    tops.reset_launch_counts()
-    tfp.reset_launch_counts()
+    _kernels.reset_launch_counts()
     c = torch.as_tensor(codes, device=dev)
     got = tops.encode_occ_u8_hdr(c, depth, 6000)
     assert torch.equal(got.cpu(), tops.encode_occ_u8_hdr_ref(c.cpu(), depth,
@@ -496,16 +493,16 @@ def test_cuda_tensor_launches_the_kernels():
     tfp.DeviceFpRaht(codes, depth, STEPS, device="cpu").encode(
         vals, plain.append)
     assert all(np.array_equal(a, b) for a, b in zip(qs, plain))
-    assert tops.LAUNCHES["octree_occ_u8"] == 2
-    assert tfp.LAUNCHES["raht_fp_truth_level"] == depth
-    assert tfp.LAUNCHES["raht_fp_group"] == depth
-    assert tfp.LAUNCHES["raht_fp_plan"] == 3
+    assert _kernels.LAUNCHES["octree_occ_u8"] == 2
+    assert _kernels.LAUNCHES["raht_fp_truth_level"] == depth
+    assert _kernels.LAUNCHES["raht_fp_group"] == depth
+    assert _kernels.LAUNCHES["raht_fp_plan"] == 3
 
 
 # ---- the redesigned kernels: exact divisions, staged tiles, real rows ----
 
 I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
-FAST = tfp.FAST_DIV_LIMIT
+FAST = rp.FAST_DIV_LIMIT
 
 
 def _floor_py(a, d):
@@ -550,7 +547,7 @@ def test_fdiv_mirror_equals_floor_division(kind):
     d = _divisors(rng, a.size)[kind]
     a_t, d_t = torch.as_tensor(a), torch.as_tensor(d)
     count = torch.zeros(2, dtype=torch.int64)
-    q = tfp.fdiv_mirror(a_t, d_t, tfp.fast_rcp_mirror(d_t), count)
+    q = rp.fdiv_mirror(a_t, d_t, rp.fast_rcp_mirror(d_t), count)
     assert torch.equal(q, _floor_py(a, d))
     fast = (np.abs(a.astype(object)) <= FAST) & (d >= 1) & (d <= FAST)
     assert int(count[0]) == int(fast.sum()) > 0
@@ -569,7 +566,7 @@ def test_fdiv_mirror_fast_path_at_its_edges():
     a = a.clamp(-FAST, FAST)
     dd = d[None, :, None].expand(12, -1, 3).reshape(-1)
     count = torch.zeros(2, dtype=torch.int64)
-    q = tfp.fdiv_mirror(a, dd, tfp.fast_rcp_mirror(dd), count)
+    q = rp.fdiv_mirror(a, dd, rp.fast_rcp_mirror(dd), count)
     assert torch.equal(q, _floor_py(a.tolist(), dd.tolist()))
     assert int(count[1]) == 0
 
@@ -588,7 +585,7 @@ def test_quant_f_mirror_equals_quant_where_24_res_wraps():
     res = torch.as_tensor(res)
     count = torch.zeros(2, dtype=torch.int64)
     got = tfp.quant_f_mirror(res, steps, 3 * steps,
-                             tfp.fast_rcp_mirror(3 * steps), count)
+                             rp.fast_rcp_mirror(3 * steps), count)
     assert torch.equal(got, tfp._quant(res, steps))
     assert int(count[0]) > 0 and int(count[1]) > 0
 
@@ -608,8 +605,8 @@ if given is not None:
                         hst.integers(FAST + 1, I64_MAX)))
     def test_fdiv_mirror_hypothesis(a, d):
         """Any int64 numerator over any positive divisor."""
-        q = tfp.fdiv_mirror(torch.tensor([a]), torch.tensor([d]),
-                            tfp.fast_rcp_mirror(torch.tensor([d])))
+        q = rp.fdiv_mirror(torch.tensor([a]), torch.tensor([d]),
+                           rp.fast_rcp_mirror(torch.tensor([d])))
         assert int(q) == a // d
 
 
@@ -682,8 +679,7 @@ def test_group_mirror_tiles_match_plain_and_jax(name, nchan):
     rows = torch.as_tensor(np.concatenate(qs).astype(np.int64))
     it = iter(np.asarray(q) for q in jq)
     jdec = np.asarray(jdv.decode(lambda m: next(it), nchan))
-    _, root, groups = dv._rows()
-    cuts = [root] + [c for grp in groups for c in grp]
+    cuts = dv.rows.slices()
     for tile in (tfp.GROUP_TILE, 7):
         launchers = (tfp.truth_level_mirror,
                      functools.partial(tfp.group_mirror, tile=tile))
@@ -714,7 +710,7 @@ def test_group_mirror_counts_general_divisions_on_extreme_values():
         recon_c = torch.empty(mc, c, dtype=torch.int64)
         cnt = torch.empty(mc, dtype=torch.int64)
         stats = torch.zeros(2, dtype=torch.int64)
-        tfp.group_mirror(p, tfp.row_offsets(p), mp, tfp.MODE_HAVE_GRAND,
+        tfp.group_mirror(p, rp.row_offsets(p), mp, tfp.MODE_HAVE_GRAND,
                          a[0], None, a[1], a[5], list(a[2:5]), None, q, None,
                          recon_c, None, cnt, kw["t0"], kw["weights"], stats)
         want = tfp._enc_group_ref(*a, **kw)
@@ -724,7 +720,7 @@ def test_group_mirror_counts_general_divisions_on_extreme_values():
         assert (int(stats[1]) > 0) == general
         dq = tfp._dec_group_ref(recon, a[1], *want[:3], a[5], p, **kw)
         recon_d = torch.empty(mc, c, dtype=torch.int64)
-        tfp.group_mirror(p, tfp.row_offsets(p), mp,
+        tfp.group_mirror(p, rp.row_offsets(p), mp,
                          tfp.MODE_DECODE | tfp.MODE_HAVE_GRAND, recon, None,
                          a[1], a[5], list(want[:3]), None, [None] * 3, None,
                          recon_d, None, cnt, kw["t0"], kw["weights"])

@@ -27,6 +27,7 @@ from mpeg_pcc_tmc13_tpu.parallel import frame as jframe
 from mpeg_pcc_tmc13_tpu.parallel import slices as jpar
 from mpeg_pcc_tmc13_tpu_torch.ops import octree as tops
 from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp_device as tfpd
+from mpeg_pcc_tmc13_tpu_torch.ops import raht_plan
 from mpeg_pcc_tmc13_tpu_torch.parallel import frame as tframe
 from mpeg_pcc_tmc13_tpu_torch.parallel import slices as tpar
 from mpeg_pcc_tmc13_tpu_torch.parallel.dryrun import dryrun_multichip
@@ -132,7 +133,7 @@ def test_isqrt64_dev():
     r = rng.integers(1, 1 << 15, 400)
     x = np.concatenate([[0, 1, 2, 3], r * r, r * r - 1, r * r + 1,
                         rng.integers(0, 1 << 31, 2000)]).astype(np.int64)
-    got = tfpd.isqrt64_dev(torch.as_tensor(x)).numpy()
+    got = raht_plan.isqrt64_dev(torch.as_tensor(x)).numpy()
     assert np.array_equal(got, np.asarray(jfpd.isqrt64_dev(jnp.asarray(x))))
     assert np.array_equal(got, jraht_fp.isqrt64(x))
 

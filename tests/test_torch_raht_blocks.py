@@ -26,7 +26,6 @@ from mpeg_pcc_tmc13_tpu.ops import raht_device as jrd
 from mpeg_pcc_tmc13_tpu_torch.ops import _kernels
 from mpeg_pcc_tmc13_tpu_torch.ops import raht_blocks as rb
 from mpeg_pcc_tmc13_tpu_torch.ops import raht_device as trd
-from mpeg_pcc_tmc13_tpu_torch.ops import rans_lanes as lanes
 from mpeg_pcc_tmc13_tpu_torch.utils import morton as tmorton
 
 torch.set_num_threads(2)
@@ -125,11 +124,11 @@ def test_cpu_tensor_never_touches_kernels(monkeypatch):
         raise AssertionError("CPU path reached ops/_kernels.py")
     monkeypatch.setattr(_kernels, "load", no_kernels)
     monkeypatch.setattr(_kernels, "build", no_kernels)
-    rb.reset_launch_counts()
+    _kernels.reset_launch_counts()
     v, w = _blocks(300, 3, 7)
     coeffs, _, _ = rb.fwd_blocks(torch.as_tensor(v), torch.as_tensor(w))
     rb.inv_blocks(coeffs, torch.as_tensor(w))
-    assert rb.LAUNCHES == {"fwd_blocks": 0, "inv_blocks": 0}
+    assert set(_kernels.LAUNCHES.values()) == {0}
 
 
 def test_other_devices_raise():
@@ -193,30 +192,48 @@ def test_load_builds_once_under_concurrent_first_use(monkeypatch):
 
 
 def test_launch_counts_are_thread_safe():
-    """The launch counters of both wrapper modules add up exactly when
-    the CLI's worker threads count at once."""
-    def count(mod, name):
+    """The launch counters of the kernels of both wrapper modules add up
+    exactly when the CLI's worker threads count at once."""
+    def count(name):
         for _ in range(20_000):
-            mod._count(name)
+            _kernels.launched(name, 0)
 
     # switch threads as often as the interpreter can, so a race shows
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        for mod, name in ((rb, "fwd_blocks"), (lanes, "decode_level")):
-            mod.reset_launch_counts()
-            threads = [threading.Thread(target=count, args=(mod, name))
+        for name in ("fwd_blocks", "decode_level"):
+            _kernels.reset_launch_counts()
+            threads = [threading.Thread(target=count, args=(name,))
                        for _ in range(4)]
             for t in threads:
                 t.start()
             for t in threads:
                 t.join(timeout=60)
                 assert not t.is_alive()
-            assert mod.LAUNCHES[name] == 80_000
-            mod.reset_launch_counts()
-            assert set(mod.LAUNCHES.values()) == {0}
+            assert _kernels.LAUNCHES[name] == 80_000
+            _kernels.reset_launch_counts()
+            assert set(_kernels.LAUNCHES.values()) == {0}
     finally:
         sys.setswitchinterval(interval)
+
+
+@pytest.mark.parametrize("name", ["fwd_blocks", "raht_fp_plan",
+                                  "raht_float_inverse"])
+def test_launched_raises_on_a_cuda_error_and_counts_a_launch(name):
+    """``_kernels.launched``: a launcher's non-zero return code raises
+    with the kernel's name and counts nothing; a zero one adds ``n``
+    launches to that kernel alone (0 for a probe)."""
+    _kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError,
+                       match=f"^{name} launch failed: CUDA error 700$"):
+        _kernels.launched(name, 700)
+    assert set(_kernels.LAUNCHES.values()) == {0}
+    _kernels.launched(name, 0)
+    _kernels.launched(name, 0, 2)
+    _kernels.launched(name, 0, 0)
+    assert {k: v for k, v in _kernels.LAUNCHES.items() if v} == {name: 3}
+    _kernels.reset_launch_counts()
 
 
 def _cloud(n, depth, c=3, seed=0):

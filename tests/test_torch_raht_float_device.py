@@ -25,8 +25,8 @@ from mpeg_pcc_tmc13_tpu.models import attributes as jattr
 from mpeg_pcc_tmc13_tpu.ops import raht as jraht_ops
 from mpeg_pcc_tmc13_tpu_torch.bitstream import hls
 from mpeg_pcc_tmc13_tpu_torch.models import attr_raht, attributes
+from mpeg_pcc_tmc13_tpu_torch.ops import _kernels
 from mpeg_pcc_tmc13_tpu_torch.ops import raht_float_device as rfd
-from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp_device
 from mpeg_pcc_tmc13_tpu_torch.runtime import decoder as decoder_mod
 from mpeg_pcc_tmc13_tpu_torch.runtime import encoder as encoder_mod
 from mpeg_pcc_tmc13_tpu_torch.utils import morton, timing
@@ -255,8 +255,7 @@ def test_plain_loop_launches_nothing():
     pos, rgb = _surface(32, seed=2)
     codes = morton.encode(pos)
     depth = attr_raht._tree_depth(codes)
-    rfd.reset_launch_counts()
-    raht_fp_device.reset_launch_counts()
+    _kernels.reset_launch_counts()
     layers = []
 
     def quant(arr, tag):
@@ -265,11 +264,26 @@ def test_plain_loop_launches_nothing():
 
     rfd.encode(codes, rgb, depth, quant, lambda q, tag: q, (2, 6),
                (9, 3, 1), CPU)
-    assert all(v == 0 for v in rfd.LAUNCHES.values())
-    assert raht_fp_device.LAUNCHES["raht_fp_plan"] == 0
+    assert all(v == 0 for v in _kernels.LAUNCHES.values())
     assert [t for t, _ in layers] == [-1] + [g for g in range(depth)
                                              for _ in range(3)]
     assert sum(s[0] for _, s in layers) == codes.size
+
+
+def test_float_loop_imports_nothing_of_the_fixed_point_codec():
+    """The float loop takes the plan and its format from
+    ``ops/raht_plan.py`` alone: ``ops/raht_float_device.py`` imports
+    nothing of ``ops/raht_fp_device.py``."""
+    import ast
+    tree = ast.parse(open(rfd.__file__).read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module or "")
+            names.update(f"{node.module or ''}.{a.name}" for a in node.names)
+    assert names and not any("raht_fp_device" in n for n in names), names
 
 
 @pytest.mark.parametrize("engine", ["device", "native"])

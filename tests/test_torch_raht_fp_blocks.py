@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from mpeg_pcc_tmc13_tpu.ops import raht_fp_device as jfpd
 from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp_device as fpd
+from mpeg_pcc_tmc13_tpu_torch.ops import raht_plan as rp
 
 torch.set_num_threads(2)
 
@@ -27,8 +28,8 @@ I64 = torch.int64
 
 def _plain_coeffs(w0, w1):
     ws = (w0 + w1).clamp(min=1)
-    return (fpd.isqrt64_dev(fpd._floordiv(w0 << 30, ws)),
-            fpd.isqrt64_dev(fpd._floordiv(w1 << 30, ws)))
+    return (rp.isqrt64_dev(fpd._floordiv(w0 << 30, ws)),
+            rp.isqrt64_dev(fpd._floordiv(w1 << 30, ws)))
 
 
 def _assert_pairs(w0, w1):
@@ -50,7 +51,7 @@ def test_fast_isqrt_around_every_square():
     n = torch.arange((1 << 15) + 1, dtype=I64)
     q = torch.cat([n * n - 1, n * n, n * n + 1]).clamp(min=0)
     assert int(q.max()) == (1 << 30) + 1
-    assert torch.equal(fpd.isqrt_fast_mirror(q), fpd.isqrt64_dev(q))
+    assert torch.equal(fpd.isqrt_fast_mirror(q), rp.isqrt64_dev(q))
 
 
 def test_fast_pairs_random_below_2_22():

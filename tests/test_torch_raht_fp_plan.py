@@ -1,9 +1,9 @@
-"""The RAHT planner of the port's card path (``ops/raht_fp_device.py``:
-``build_plan``, its kernels in ``csrc/raht_fp_plan.cu`` and its plain
-version ``build_plan_ref``) held to the host spec,
-``plans_to_torch(build_fp_plan(...))`` with ``row_offsets``, tensor for
-tensor with zero difference, and ``DeviceFpRaht``'s choice of planner:
-the kernels on a CUDA device, the host spec elsewhere.
+"""The RAHT planner (``ops/raht_plan.py``: ``build_plan``, its kernels in
+``csrc/raht_fp_plan.cu`` and its plain version ``build_plan_ref``) held
+to the host spec, ``plans_to_torch(build_fp_plan(...))`` with
+``row_offsets``, tensor for tensor with zero difference; its coded-order
+rows held to what both closed loops emit; and ``DeviceFpRaht``'s choice
+of planner: the kernels on a CUDA device, the host spec elsewhere.
 
 On the CPU the spec is the JAX package's host numpy ``build_fp_plan``
 (``mpeg_pcc_tmc13_tpu/ops/raht_fp_device.py``, which loads no jax),
@@ -16,7 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from mpeg_pcc_tmc13_tpu_torch.ops import _kernels
+from mpeg_pcc_tmc13_tpu_torch.ops import raht_float_device as rfd
 from mpeg_pcc_tmc13_tpu_torch.ops import raht_fp_device as fpd
+from mpeg_pcc_tmc13_tpu_torch.ops import raht_plan as rp
 from mpeg_pcc_tmc13_tpu_torch.scripts.gen_clouds import make_lidar_frame
 from mpeg_pcc_tmc13_tpu_torch.utils import morton
 
@@ -99,8 +102,8 @@ def _spec(codes, depth, device="cpu", planner=None):
     ``plans_to_torch`` and ``row_offsets``."""
     host = (planner or fpd.build_fp_plan)(codes, depth)
     plans = fpd.plans_to_torch(host, device)
-    return fpd.FramePlan(
-        plans, [fpd.row_offsets(p) for p in plans],
+    return rp.FramePlan(
+        plans, [rp.row_offsets(p) for p in plans],
         [(hp.flat_z.size, hp.flat_y.size, hp.flat_x.size) for hp in host],
         host[-1].mp if host else codes.shape[0])
 
@@ -124,14 +127,14 @@ def _assert_same(got, want):
 def test_plain_planner_equals_host_spec(case):
     codes, depth = CASES[case]()
     want = _spec(codes, depth, planner=_jax_planner())
-    _assert_same(fpd.build_plan(torch.as_tensor(codes), depth), want)
+    _assert_same(rp.build_plan(torch.as_tensor(codes), depth), want)
     _assert_same(_spec(codes, depth), want)
 
 
 @pytest.mark.parametrize("case", sorted(UNSORTED))
 def test_plain_planner_refuses_unsorted_codes(case):
     with pytest.raises(ValueError, match="increasing"):
-        fpd.build_plan(torch.as_tensor(UNSORTED[case]), 5)
+        rp.build_plan(torch.as_tensor(UNSORTED[case]), 5)
 
 
 def test_device_fp_raht_off_the_card_keeps_the_host_planner(monkeypatch):
@@ -139,11 +142,39 @@ def test_device_fp_raht_off_the_card_keeps_the_host_planner(monkeypatch):
 
     def refuse(*a, **k):
         raise AssertionError("the card planner ran off the card")
-    monkeypatch.setattr(fpd, "build_plan", refuse)
+    monkeypatch.setattr(rp, "build_plan", refuse)
     dv = fpd.DeviceFpRaht(codes, depth, [1 << 16] * 3, device="cpu")
-    _assert_same(fpd.FramePlan(dv.plans, dv.offsets, dv.pair_counts,
-                               dv.n_roots),
+    _assert_same(rp.FramePlan(dv.plans, dv.offsets, dv.pair_counts,
+                              dv.n_roots),
                  _spec(codes, depth, planner=_jax_planner()))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_coded_rows_match_both_loops(case):
+    """``FramePlan.coded_rows``: the root's rows, then each level's z, y,
+    x rows, coarsest first, are the row counts the fixed-point loop
+    emits and the float loop hands its quantiser, on one cloud."""
+    codes, depth = CASES[case]()
+    rows = rp.build_plan(torch.as_tensor(codes), depth).coded_rows()
+    want = [s.stop - s.start for s in rows.slices()]
+    assert rows.total == sum(want) and rows.root == slice(0, want[0])
+    assert len(rows.levels) == depth
+    assert [s.start for s in rows.slices()[1:]] == \
+        [s.stop for s in rows.slices()[:-1]]
+    vals = (np.arange(codes.size * 3).reshape(-1, 3) * 37) % 256
+    fixed = []
+    fpd.DeviceFpRaht(codes, depth, [1 << 16] * 3, device="cpu").encode(
+        vals, lambda q: fixed.append(q.shape[0]))
+    assert fixed == want
+    if depth and codes.size:  # the float loop codes no empty brick
+        floats = []
+
+        def quant(res, tag):
+            floats.append(res.shape[0])
+            return np.round(res)
+        rfd.encode(codes, vals, depth, quant, lambda q, tag: q, (2, 6),
+                   (9, 3, 1), torch.device("cpu"))
+        assert floats == want
 
 
 def test_chip_smoke_plan_check_rehearses_on_the_cpu(monkeypatch):
@@ -154,13 +185,13 @@ def test_chip_smoke_plan_check_rehearses_on_the_cpu(monkeypatch):
     codes, depth = _body_patch()
     t = torch.as_tensor(codes)
     assert chip_smoke._plan_checks(t, codes, depth) == 0.0
-    plain = fpd.build_plan
+    plain = rp.build_plan
 
     def off_by_one(c, d):
         plan = plain(c, d)
         plan.plans[3]["sw_p"] = plan.plans[3]["sw_p"] + 1
         return plan
-    monkeypatch.setattr(fpd, "build_plan", off_by_one)
+    monkeypatch.setattr(rp, "build_plan", off_by_one)
     with pytest.raises(AssertionError, match="raht_fp_plan differs"):
         chip_smoke._plan_checks(t, codes, depth)
 
@@ -177,11 +208,11 @@ def _card():
 def test_card_planner_equals_host_spec(case):
     dev = _card()
     codes, depth = CASES[case]()
-    fpd.reset_launch_counts()
-    got = fpd.build_plan(torch.as_tensor(codes, device=dev), depth)
+    _kernels.reset_launch_counts()
+    got = rp.build_plan(torch.as_tensor(codes, device=dev), depth)
     _assert_same(got, _spec(codes, depth))
     launched = 3 if depth and codes.size else 0
-    assert fpd.LAUNCHES["raht_fp_plan"] == launched
+    assert _kernels.LAUNCHES["raht_fp_plan"] == launched
     for p, offs in zip(got.plans, got.offsets):
         assert all(t.device == dev and t.is_contiguous()
                    and t.data_ptr() % 16 == 0
@@ -193,7 +224,7 @@ def test_card_planner_equals_host_spec(case):
 def test_card_planner_refuses_unsorted_codes(case):
     dev = _card()
     with pytest.raises(ValueError, match="increasing"):
-        fpd.build_plan(torch.as_tensor(UNSORTED[case], device=dev), 5)
+        rp.build_plan(torch.as_tensor(UNSORTED[case], device=dev), 5)
 
 
 @pytest.mark.cuda
@@ -216,9 +247,9 @@ def test_card_round_trip_equals_the_host_planners(case, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("build_fp_plan ran for a card")
     monkeypatch.setattr(fpd, "build_fp_plan", refuse)
-    fpd.reset_launch_counts()
+    _kernels.reset_launch_counts()
     card = fpd.DeviceFpRaht(codes, depth, steps, device=dev)
-    assert fpd.LAUNCHES["raht_fp_plan"] == 3
+    assert _kernels.LAUNCHES["raht_fp_plan"] == 3
     got_q = []
     got_rec = card.encode(vals, got_q.append)
     assert len(got_q) == len(want_q)
