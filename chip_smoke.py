@@ -12,8 +12,8 @@ printed line:
   (b) build of the port's native host library from ``native/`` with g++
       (its path and build seconds) and of the hand-written CUDA kernels
       from ``csrc/`` with nvcc, with ptxas's registers, shared memory and
-      spills of ``raht_fp_group``, ``octree_expand`` and the planner's
-      ``plan_blocks``,
+      spills of ``raht_fp_group``, ``octree_expand``, the planner's
+      ``plan_blocks``, ``raht_float_predict`` and ``octree_neigh_ctx``,
   (c) each block kernel against its plain PyTorch version on the card,
       bit for bit, at ragged batch sizes and all 256 occupancy patterns,
       for 1 and 3 channels and, through the wrappers' split into runs of
@@ -63,6 +63,18 @@ printed line:
       depth a decode); (q3)
       ``tmc3-cuda --mode=1`` in a process of its own decodes the card
       loop's stream to the same cloud,
+  (r) the geometry brick's QT/BT decode on the card
+      (``models/geometry_octree.py`` ``decode_qtbt_card``) at (q)'s body
+      frame through ``tmc3-cuda``'s path: (r1) every level's
+      ``octree_neigh_ctx`` launch against its plain version on the same
+      inputs (max abs difference 0), the card walk's leaf codes against
+      ``decode_qtbt_np``'s (the decoder with no card), the decoded
+      positions against the input, one launch and one
+      ``geom.card_levels`` a level with no forced axis; (r2) the
+      kernel's device time a brick (CUDA events around repeated launches
+      of each recorded level) beside its byte bound, its launch wall and
+      its plain version's, and the traced ``geom.brick`` of a warm
+      decode through the card and through the host walk,
   (e) a depth-21 geometry round trip (the 63-bit Morton domain),
   (g) the rANS brick at the bench size through ``models.geometry_rans``
       (one table-pass launch and one emission per encode, one decode
@@ -275,6 +287,10 @@ KERNELS = {
                            "mpeg_pcc_tmc13_tpu/ops/raht.py:212"),
     "raht_float_inverse": ("raht_float_inverse", "raht_float_loop.cu",
                            "mpeg_pcc_tmc13_tpu/ops/raht.py:375"),
+    # no TPU kernel: the JAX package decodes the QT/BT levels in host
+    # numpy (decode_qtbt_np with _level_base_np)
+    "octree_neigh_ctx": ("octree_neigh_ctx", "octree_ctx.cu",
+                         "mpeg_pcc_tmc13_tpu/models/geometry_octree.py:494"),
 }
 # the planner's three kernels, by a part of their entry names
 PLAN_KERNELS = ("plan_count_kernel", "plan_scatter_kernel",
@@ -3138,8 +3154,8 @@ def _float_twins(diffs, nbytes):
 
 @contextlib.contextmanager
 def _numpy_colour():
-    """The colour brick's numpy path while the block runs: the frame
-    codec hands the brick no device."""
+    """The frame codec's host paths while the block runs: it hands the
+    colour brick and the QT/BT geometry walk no device."""
     from mpeg_pcc_tmc13_tpu_torch.runtime import decoder, encoder
     before = encoder.cuda_or_none, decoder.cuda_or_none
     encoder.cuda_or_none = decoder.cuda_or_none = lambda d: None
@@ -3327,11 +3343,156 @@ def phase_q(device, seed=FLOAT_BODY_SEED):
     return times, launches, diffs
 
 
+# ---- (r) the geometry brick's QT/BT decode on the card -----------------
+
+NEIGH_CTX_REPS = 50               # (r2): launches timed a recorded level
+
+
+def _neigh_ctx_bytes(n, mode):
+    """Bytes ``octree_neigh_ctx`` must move once at a level of n nodes:
+    the codes (8 a node) and the bases (4); PARENT also each node's
+    parent row (8) and byte (1)."""
+    from mpeg_pcc_tmc13_tpu_torch.ops import octree as octree_ops
+    return n * (12 if mode == octree_ops.CTX_MODE_NEIGH else 21)
+
+
+@contextlib.contextmanager
+def _recorded(module, name, calls, twin=None):
+    """Record each call of ``module.name`` (its arguments and result) in
+    ``calls`` while the block runs; ``twin(result, *args)`` after each."""
+    import torch
+    real = getattr(module, name)
+
+    def run(*a, **kw):
+        out = real(*a, **kw)
+        calls.append((tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                            for x in a), kw, out))
+        if twin is not None:
+            twin(out, *a, **kw)
+        return out
+    setattr(module, name, run)
+    try:
+        yield real
+    finally:
+        setattr(module, name, real)
+
+
+def phase_r(device, seed=FLOAT_BODY_SEED, reps=NEIGH_CTX_REPS):
+    """(r) the CLI's QT/BT geometry decode on the card at the body frame
+    of the benchmark's ``vox10_body_cli`` configuration.  Returns ((launch
+    wall ms, plain ms, device ms, bound ms, bound by) a brick, launches a
+    brick, max abs difference from the plain version)."""
+    import torch
+    from mpeg_pcc_tmc13_tpu_torch.models import geometry_octree as go
+    from mpeg_pcc_tmc13_tpu_torch.ops import octree as octree_ops
+    from mpeg_pcc_tmc13_tpu_torch.utils import timing
+    from pccbench.codecs import tmc3_cli
+    from pccbench.frames import make_frames
+    from pccbench.spans import Clock
+
+    cfg = json.loads((REPO / "pccbench/configs/vox10_body_cli.json")
+                     .read_text())
+    fr = make_frames(dict(cfg, frames=1), seed)[0]
+    codes, rgb = fr.codes, fr.values
+    codec = tmc3_cli.make(cfg, None, [str(device)], Clock(False))
+    enc = codec.encode(codes, rgb)
+
+    # (r1) the card walk, each launch beside its plain version; then the
+    # decoder with no card (the host walk)
+    diff = [0]
+
+    def twin(out, c, level, mode, parent_occ=None, src=None):
+        want = octree_ops.octree_neigh_ctx_ref(c, level, mode, parent_occ,
+                                               src)
+        diff[0] = max(diff[0], int((out.long() - want.long()).abs().max()))
+
+    launches, walks, ctx_calls, leaves, sinks = {}, [], [], {}, {}
+    for path in ("card", "host"):
+        sinks[path] = _Sink()
+        walk = "decode_qtbt_card" if path == "card" else "decode_qtbt_np"
+        with contextlib.ExitStack() as stack:
+            if path == "host":
+                stack.enter_context(_numpy_colour())
+            else:
+                stack.enter_context(_recorded(octree_ops, "octree_neigh_ctx",
+                                              ctx_calls, twin))
+            stack.enter_context(_recorded(go, walk, walks))
+            stack.enter_context(timing.tracing(sinks[path], "decode"))
+            _reset_launches()
+            dcodes, _ = codec.decode(enc.geom, enc.attr, codes.size)
+            launches[path] = _launches("octree_neigh_ctx")["octree_neigh_ctx"]
+        _check(np.array_equal(dcodes, codes), f"(r1) {path}: positions")
+        _check(len(walks) == 1, f"(r1) {path}: {len(walks)} {walk} calls")
+        (args, kw, (nodes, lvl)), = walks
+        leaves[path] = (nodes, lvl)
+        walks.clear()
+    depth, axis_bits = args[0], args[4]
+    free = sum(all(l >= depth - b for b in axis_bits) for l in range(depth))
+    cards = {p: s.counters.get("decode.geom.card_levels") for p, s in
+             sinks.items()}
+    _check(np.array_equal(leaves["card"][0], leaves["host"][0])
+           and leaves["card"][1] == leaves["host"][1] == depth,
+           "(r1) the card walk's leaf codes are not decode_qtbt_np's")
+    _check(diff[0] == 0, f"(r1) octree_neigh_ctx differs from its plain "
+           f"version by {diff[0]}")
+    _check(launches == {"card": free, "host": 0} and len(ctx_calls) == free
+           and cards == {"card": free, "host": 0},
+           f"(r1) launches {launches}, geom.card_levels {cards}, {free} "
+           "levels with no forced axis")
+    _line("r1", points=codes.size, depth=depth,
+          axis_bits="_".join(map(str, axis_bits)), card_levels=free,
+          leaves=leaves["card"][0].size, leaves_vs_host="identical",
+          max_abs_err=diff[0], launches=launches["card"])
+
+    # (r2) each recorded level: the kernel's device time (events around
+    # reps launches), its launch wall, the plain version's time
+    wall = dev_ms = plain = 0.0
+    nbytes = 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for (c, level, mode, *rest), kw, _ in ctx_calls:
+        call = lambda fn: fn(c, level, mode, *rest, **kw)  # noqa: E731
+        call(octree_ops.octree_neigh_ctx)                  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call(octree_ops.octree_neigh_ctx)
+        wall += (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        ev[0].record()
+        for _ in range(reps):
+            call(octree_ops.octree_neigh_ctx)
+        ev[1].record()
+        torch.cuda.synchronize()
+        dev_ms += ev[0].elapsed_time(ev[1]) / reps
+        ev[0].record()
+        call(octree_ops.octree_neigh_ctx_ref)
+        ev[1].record()
+        torch.cuda.synchronize()
+        plain += ev[0].elapsed_time(ev[1])
+        nbytes += _neigh_ctx_bytes(c.shape[0], mode)
+    bound, by = _bound_ms(nbytes)
+    brick = {}
+    for path in ("card", "host"):
+        sink = _Sink()
+        with contextlib.ExitStack() as stack:
+            if path == "host":
+                stack.enter_context(_numpy_colour())
+            stack.enter_context(timing.tracing(sink, "decode"))
+            codec.decode(enc.geom, enc.attr, codes.size)
+        brick[path] = 1e3 * sink.spans["decode.geom.brick"]
+    _line("r2", kernel="octree_neigh_ctx", levels=free,
+          nodes=sum(c.shape[0] for (c, *_), _, _ in ctx_calls),
+          device_ms=f"{dev_ms:.4f}", bound_ms=f"{bound:.4f}", bytes=nbytes,
+          launch_wall_ms=f"{wall:.4f}", plain_ms=f"{plain:.3f}",
+          geom_brick_decode_card_ms=f"{brick['card']:.1f}",
+          geom_brick_decode_host_ms=f"{brick['host']:.1f}")
+    return (wall, plain, dev_ms, bound, by), launches["card"], diff[0]
+
+
 # the kernels whose registers, shared memory and spills (b) prints, by a
 # part of their (possibly mangled) entry names
 PTXAS_KERNELS = ("raht_fp_group_kernel", "octree_expand_count_kernel",
                  "octree_expand_level_kernel", "plan_blocks_kernel",
-                 "raht_float_predict_kernel")
+                 "raht_float_predict_kernel", "octree_neigh_ctx_kernel")
 
 
 def _ptxas_report(so, names):
@@ -3412,6 +3573,8 @@ def main() -> int:
     q_times, q_launches, q_errs = phase_q(device)              # (q)
     launches.update(q_launches)
     errs.update(q_errs)
+    r_times, launches["octree_neigh_ctx"], errs["octree_neigh_ctx"] = \
+        phase_r(device)                                        # (r)
     phase_e(device)                                            # (e)
     rans, rans_launches, rans_errs = phase_g(                  # (g)
         device, uniq, BENCH_DEPTH, len(r.geom_payload))
@@ -3432,6 +3595,7 @@ def main() -> int:
                               colors, rans, errs, headline)
     times.update(m_times)
     times.update(q_times)
+    times["octree_neigh_ctx"] = r_times
 
     _line("z", smoke_s=f"{time.perf_counter() - t_start:.1f}")
     kernels = []

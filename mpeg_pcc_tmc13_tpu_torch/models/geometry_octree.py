@@ -19,11 +19,14 @@ Context modes: ``ops.octree.CTX_MODE_NEIGH`` / ``CTX_MODE_PARENT``.
 Planar mode, implicit QT/BT, IDCM, multistream coding and duplicate
 counts are host numpy code carried across unchanged; only the imports
 point at the port (its Morton codes and octree module), so nothing here
-reaches jax.
+reaches jax.  The one addition: ``decode_qtbt_card``, the QT/BT decode
+with its level walk on a torch device (the host keeping the range
+decoder), which ``decode`` takes when it is given a device.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field, fields
 
 import numpy as np
@@ -33,7 +36,7 @@ from ..bitstream import entropy
 
 from ..ops import octree as ops
 from ..ops.motion import LPU_CTX_SIZE
-from ..utils import morton
+from ..utils import morton, timing
 from ..utils.device import resolve as resolve_device
 
 # dup-count ueg: 2 prefix contexts + escape; see entropy ueg layout
@@ -515,6 +518,23 @@ def encode_qtbt_np(uniq: np.ndarray, depth: int, enc,
                 node = node * 2 + bit
 
 
+def _decode_forced_occ(n: int, forced, dec, ctx: OctreeContexts):
+    """A QT/BT level with forced axes: its n occupancy bytes, decoded
+    from the surviving child slots' planar bits (both walkers)."""
+    eff = np.broadcast_to(np.asarray(forced), (n, 3))
+    side = np.zeros((n, 3), dtype=np.int32)
+    occ = np.zeros(n, dtype=np.int32)
+    for idx, allowed, off, nbits in _planar_groups(eff, side):
+        node = np.ones(idx.size, dtype=np.int32)
+        vals = np.zeros(idx.size, dtype=np.int32)
+        for j in range(nbits):
+            bit = dec.bits(ctx.planar_occ, (off + node - 1).astype(np.int32))
+            vals |= bit.astype(np.int32) << allowed[j]
+            node = node * 2 + bit.astype(np.int32)
+        occ[idx] = vals
+    return occ
+
+
 def decode_qtbt_np(depth: int, dec, ctx: OctreeContexts, ctx_mode: int,
                    axis_bits, bytewise: bool = True,
                    stop_at: int = None, max_points: int = 0):
@@ -535,18 +555,7 @@ def decode_qtbt_np(depth: int, dec, ctx: OctreeContexts, ctx_mode: int,
                    else dec.occupancy(ctx.occupancy,
                                       base)).astype(np.int32)
         else:
-            eff = np.broadcast_to(forced, (n, 3))
-            side = np.zeros((n, 3), dtype=np.int32)
-            occ = np.zeros(n, dtype=np.int32)
-            for idx, allowed, off, nbits in _planar_groups(eff, side):
-                node = np.ones(idx.size, dtype=np.int32)
-                vals = np.zeros(idx.size, dtype=np.int32)
-                for j in range(nbits):
-                    bit = dec.bits(ctx.planar_occ,
-                                   (off + node - 1).astype(np.int32))
-                    vals |= bit.astype(np.int32) << allowed[j]
-                    node = node * 2 + bit.astype(np.int32)
-                occ[idx] = vals
+            occ = _decode_forced_occ(n, forced, dec, ctx)
         occ = np.where(occ == 0, 1, occ)   # corrupt-stream guard
         u8 = occ.astype(np.uint8)
         nodes = ops.expand_level_np(nodes, u8)
@@ -554,6 +563,60 @@ def decode_qtbt_np(depth: int, dec, ctx: OctreeContexts, ctx_mode: int,
             parent_occ = np.repeat(occ, ops.popcount8_np(u8))
         lvl_done = l + 1
     return nodes, lvl_done
+
+
+def decode_qtbt_card(depth: int, dec, ctx: OctreeContexts, ctx_mode: int,
+                     axis_bits, bytewise: bool = True, stop_at: int = None,
+                     max_points: int = 0, device=None):
+    """``decode_qtbt_np`` with the level walk on ``device``: the same
+    arguments and result, (leaf codes on the host, levels decoded).
+
+    The node codes stay on the device.  A level with no forced axis has
+    its context bases computed there (``ops.octree.octree_neigh_ctx``;
+    counter ``geom.card_levels`` on a card) and fetched in one copy; the
+    host range decoder decodes its bytes; a forced level's bytes decode
+    on the host from the node count alone.  The host sizes the children
+    from its own popcount of the bytes, so any stream, a damaged one too,
+    decodes as ``decode_qtbt_np`` decodes it; the bytes go up in one copy
+    and ``ops.octree._expand_level`` expands them, the level padded to
+    its child count.  The leaf codes come back once, at the end.  A CPU
+    device runs the plain versions."""
+    dev = torch.device(device)
+    pinned = dev.type == "cuda"
+    stop = depth if stop_at is None else stop_at
+    nodes = torch.zeros(1, dtype=torch.int64, device=dev)    # the root
+    occ_up = src = None  # PARENT: the level above's bytes, each node's row
+    n, lvl_done = 1, 0
+    for l in range(stop):
+        if max_points and n >= max_points:
+            break
+        forced = [l < depth - axis_bits[a] for a in range(3)]
+        if not any(forced):
+            base = ops.octree_neigh_ctx(nodes, l, ctx_mode, occ_up, src)
+            host = torch.empty(n, dtype=torch.int32, pin_memory=pinned)
+            host.copy_(base)
+            if pinned:
+                timing.count("geom.card_levels", 1)
+            occ = (dec.occupancy_sym(ctx.occupancy_sym, host.numpy())
+                   if bytewise
+                   else dec.occupancy(ctx.occupancy,
+                                      host.numpy())).astype(np.int32)
+        else:
+            occ = _decode_forced_occ(n, forced, dec, ctx)
+        u8 = np.where(occ == 0, 1, occ).astype(np.uint8)  # corrupt guard
+        nchild = int(np.unpackbits(u8).sum())
+        host = torch.empty(n, dtype=torch.uint8, pin_memory=pinned)
+        host.numpy()[:] = u8
+        occ_up = torch.zeros(nchild, dtype=torch.uint8, device=dev)
+        occ_up[:n].copy_(host, non_blocking=True)
+        padded = torch.empty(nchild, dtype=torch.int64, device=dev)
+        padded[:n] = nodes
+        padded[n:] = ops.I64_MAX
+        nodes, _, src = ops._expand_level(padded, occ_up, nchild)
+        if ctx_mode != ops.CTX_MODE_PARENT:
+            occ_up = src = None
+        n, lvl_done = nchild, l + 1
+    return nodes.cpu().numpy(), lvl_done
 
 
 def _level_base_np(nodes: np.ndarray, parent_occ: np.ndarray, l: int,
@@ -764,7 +827,7 @@ def decode(num_points: int, depth: int, dec, ctx: OctreeContexts,
            ref_codes: np.ndarray = None, idcm: bool = False,
            skip_layers: int = 0, max_points: int = 0,
            planar: bool = False, bytewise: bool = True,
-           axis_bits=None, angular=None):
+           axis_bits=None, angular=None, device=None):
     """Decode positions (coding order).
 
     num_points (total, incl. duplicates — signalled in the GBH) only
@@ -776,6 +839,8 @@ def decode(num_points: int, depth: int, dec, ctx: OctreeContexts,
     octree levels are not decoded; node centres at the truncated level
     are returned, scaled back to full resolution.  max_points > 0
     additionally stops descending once a level has that many nodes.
+    device: the torch device of a QT/BT brick's level walk
+    (``decode_qtbt_card``); None walks it on the host (``decode_qtbt_np``).
     """
     if num_points == 0:
         return np.zeros((0, 3), dtype=np.int64)
@@ -785,7 +850,9 @@ def decode(num_points: int, depth: int, dec, ctx: OctreeContexts,
             and (ref_codes is None or ref_codes.size == 0)
             and not idcm and not planar)
     if qtbt:
-        nodes, lvl = decode_qtbt_np(
+        walk = (decode_qtbt_np if device is None else
+                functools.partial(decode_qtbt_card, device=device))
+        nodes, lvl = walk(
             depth, dec, ctx, ctx_mode, axis_bits, bytewise=bytewise,
             stop_at=depth - min(skip_layers, depth),
             max_points=max_points)

@@ -49,7 +49,8 @@ LAUNCHES = {name: 0 for name in (
     "fwd_blocks", "inv_blocks", "table_pass", "encode_emit", "decode_level",
     "octree_occ_u8", "octree_expand", "fwd_blocks_int",
     "raht_fp_truth_level", "raht_fp_group", "raht_fp_plan",
-    "raht_float_truth", "raht_float_predict", "raht_float_inverse")}
+    "raht_float_truth", "raht_float_predict", "raht_float_inverse",
+    "octree_neigh_ctx")}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -224,6 +225,9 @@ def _open(so: Path):
     lib.octree_expand_level_launch.restype = i32
     lib.octree_expand_chain_probe_launch.argtypes = [i64, vp]
     lib.octree_expand_chain_probe_launch.restype = i32
+    lib.octree_neigh_ctx_launch.argtypes = [vp, i64, i32, i32, vp, vp, vp,
+                                            vp]
+    lib.octree_neigh_ctx_launch.restype = i32
     pp = ctypes.POINTER(ctypes.c_void_p)
     lib.raht_fp_truth_level_launch.argtypes = [pp, i64, i32, vp, i32, vp, vp,
                                                vp, vp, vp]

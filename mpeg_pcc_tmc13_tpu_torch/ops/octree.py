@@ -15,14 +15,17 @@ The octree is implicit in the sorted leaf codes: the nodes of level
   reference frame, for ``parallel.slices``), ``encode_occ_u8`` /
   ``encode_occ_u8_hdr`` (occupancy bytes only, the device pipeline's
   raw link), ``encode_occ_packed_hdr`` (the same bytes through the
-  static prefix code, the packed link) and ``decode_expand_stream``
-  (decoder expansion back to leaf codes).
+  static prefix code, the packed link), ``decode_expand_stream``
+  (decoder expansion back to leaf codes), and for a decoder that walks
+  the levels beside the host range decoder ``octree_neigh_ctx`` (a
+  level's context bases).
 
 On a CUDA tensor ``encode_occ_u8``/``encode_occ_u8_hdr`` launch the
-hand-written kernel ``octree_occ_u8`` and ``_expand_level``/
+hand-written kernel ``octree_occ_u8``, ``_expand_level``/
 ``decode_expand_stream`` the kernel ``octree_expand`` of
-``csrc/octree_levels.cu`` (or raise); on a CPU tensor they run their
-plain versions, the ``_ref`` functions, which the kernels equal bit for
+``csrc/octree_levels.cu`` and ``octree_neigh_ctx`` the kernel of the
+same name in ``csrc/octree_ctx.cu`` (or raise); on a CPU tensor they run
+their plain versions, the ``_ref`` functions, which the kernels equal bit for
 bit and which the kernels' algorithms are mirrored against in plain
 torch (``first_level_mirror``, ``occ_u8_mirror``,
 ``expand_level_mirror``) for the tests.  ``_kernels.LAUNCHES`` counts
@@ -840,6 +843,87 @@ def expand_chain_probe(nrows: int, device) -> None:
         rc = lib.octree_expand_chain_probe_launch(
             nrows, torch.cuda.current_stream(device).cuda_stream)
     _kernels.launched("octree_expand_chain_probe", rc, 0)
+
+
+# ---- a decoder's level walk with the host range decoder ------------------
+# (models/geometry_octree.py decode_qtbt_card): the context bases of a
+# level's nodes (csrc/octree_ctx.cu); its expansion is _expand_level
+
+# bit 0 of every Morton triple
+_AXIS_BITS = 0x1249249249249249
+
+
+def octree_neigh_ctx_ref(codes: torch.Tensor, level: int, mode: int,
+                         parent_occ: torch.Tensor = None,
+                         src: torch.Tensor = None) -> torch.Tensor:
+    """Plain version of ``octree_neigh_ctx``: the context base of each
+    node of a level, as ``occ_context_base_np`` (NEIGH) and the numpy
+    walkers' ``child << 8 | parent occupancy`` (PARENT) give it.
+
+    The six face neighbours' codes come from each code by dilated-integer
+    arithmetic on the axis's interleaved bits (no Morton decode), each
+    then looked up in the level's sorted codes."""
+    child = (codes & 7).to(torch.int32)
+    if mode == CTX_MODE_PARENT:
+        par = 0 if parent_occ is None else parent_occ.to(torch.int32)[src]
+        return (child << 8) | par
+    n = codes.shape[0]
+    lmask = (1 << (3 * level)) - 1
+    pat = torch.zeros(n, dtype=torch.int32, device=codes.device)
+    for a in range(3):                     # x, y, z: bits 2, 1, 0
+        m = (_AXIS_BITS << (2 - a)) & lmask
+        one = 1 << (2 - a)
+        coord, rest = codes & m, codes & ~m
+        minus = ((coord - one) & m) | rest
+        plus = (((codes | ~m) + one) & m) | rest
+        for bit, q, ok in ((2 * a, minus, coord != 0),
+                           (2 * a + 1, plus, coord != m)):
+            idx = torch.searchsorted(codes, q).clamp_(max=n - 1)
+            hit = ok & (codes[idx] == q)
+            pat |= hit.to(torch.int32) << bit
+    return pat | (child << 6)
+
+
+def octree_neigh_ctx(codes: torch.Tensor, level: int, mode: int,
+                     parent_occ: torch.Tensor = None,
+                     src: torch.Tensor = None) -> torch.Tensor:
+    """The occupancy context base of each node of decoder level ``level``
+    (0 is the root): ``codes`` (n,) int64, the level's sorted unique node
+    codes; ``mode`` ``CTX_MODE_NEIGH`` (face pattern | child << 6) or
+    ``CTX_MODE_PARENT`` (child << 8 | the parent's byte: ``parent_occ``
+    the level above's occupancy bytes and ``src`` (n,) int64 each node's
+    row there, both None at the root).  Returns (n,) int32.
+
+    A CUDA tensor launches ``octree_neigh_ctx`` (one launch) or raises; a
+    CPU tensor runs ``octree_neigh_ctx_ref``."""
+    if not _kernels.on_card(codes):
+        return octree_neigh_ctx_ref(codes, level, mode, parent_occ, src)
+    n = codes.shape[0]
+    neigh = mode == CTX_MODE_NEIGH
+    if codes.dtype != torch.int64 or codes.dim() != 1 or n == 0 \
+            or not 0 <= level <= 21 or mode not in (CTX_MODE_NEIGH,
+                                                    CTX_MODE_PARENT):
+        raise ValueError(f"need (n > 0,) int64 codes, a level in [0, 21] "
+                         f"and a context mode, got {codes.dtype} "
+                         f"{tuple(codes.shape)}, level {level}, mode {mode}")
+    if not neigh and parent_occ is not None and (
+            parent_occ.dtype != torch.uint8 or src is None
+            or src.dtype != torch.int64 or src.shape != (n,)):
+        raise ValueError("PARENT bases need uint8 parent bytes and (n,) "
+                         "int64 parent rows")
+    codes = codes.contiguous()
+    out = torch.empty(n, dtype=torch.int32, device=codes.device)
+    if not neigh and parent_occ is not None:
+        parent_occ, src = parent_occ.contiguous(), src.contiguous()
+    else:
+        parent_occ = src = None
+    lib = _kernels.load()
+    with torch.cuda.device(codes.device):
+        rc = lib.octree_neigh_ctx_launch(
+            codes.data_ptr(), n, level, int(neigh), _kernels.ptr(parent_occ),
+            _kernels.ptr(src), out.data_ptr(), _kernels.stream(codes))
+    _kernels.launched("octree_neigh_ctx", rc)
+    return out
 
 
 def _expand_rows_mirror(b, nodes, r0, start, nmax, out, src):

@@ -62,8 +62,11 @@ class FrameDecoder:
     CUDA device, raising when there is none (utils/device.resolve).
     The stream decides that a brick is rANS, so such a stream never
     decodes on the host unasked.  A float predicted RAHT colour brick
-    runs its transform on that device when it is a CUDA device (None:
-    where one exists), on the host otherwise; the values are the same.
+    runs its transform, and a QT/BT octree brick its level walk, on that
+    device when it is a CUDA device (None: where one exists), on the
+    host otherwise; the values are the same.  The counter
+    ``geom.card_levels`` (opened at 0 a geometry brick) counts the QT/BT
+    levels whose context bases the card computed.
     """
 
     def __init__(self, on_output_cloud: Callable[[pc.PointCloud], None],
@@ -179,6 +182,7 @@ class FrameDecoder:
     def _decode_geometry_brick(self, data: bytes):
         gbh, off = hls.GeometryBrickHeader.parse(data)
         self._detect_frame_boundary(gbh.frame_ctr_lsb)
+        timing.count("geom.card_levels", 0)
         gps = self.gps[gbh.gps_id]
 
         continuing = gbh.entropy_continuation and self._geom_ctx is not None
@@ -327,7 +331,8 @@ class FrameDecoder:
                 planar=gps.planar_mode_enabled,
                 bytewise=gps.bytewise_occupancy,
                 axis_bits=gbh.axis_bits,
-                angular=_angular_for(gps, gbh.slice_origin))
+                angular=_angular_for(gps, gbh.slice_origin),
+                device=cuda_or_none(self.device))
         loc_grid = local
         if (gbh.geom_qp_node_depth > 0 and self.skip_layers == 0
                 and not self.max_points):
